@@ -12,17 +12,28 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
 2. build    both kernels, one nvcc per source, started together;
 3. kernels  each kernel against its plain torch version on the card,
             exact equality (tolerance 0: GF arithmetic is exact), at the
-            listed shapes and at the main path's shapes;
+            listed shapes, over gf_matmul's grid of m, k, stream lengths
+            (aligned, unaligned, s < 4), 1-4 row sources, batching, p and
+            unreduced or negative inputs, and at the main path's shapes;
+            plus the exhaustive check of the kernel's Barrett fold over
+            every uint32 value at p in {5, 257, 46337};
 4. main     the port's main path at the repo's production width, [16, 8]
             over GF(257), on a 1 GiB payload made from a seed: encode,
-            single and batched regenerate, any-k decode (twice: the second
-            must hit the decode cache), one-matmul multi-failure repair,
+            single and batched regenerate (each exactly one gf_matmul
+            launch, with no temporaries beyond its output), any-k decode
+            (twice: the second must hit the decode cache), one-matmul
+            multi-failure repair (no concatenated copy of the download),
             the planned ops with zero new plan compiles on a repeat, and a
-            known-answer check against digests of the JAX reference;
-5. times    CUDA-event medians (warm-up excluded, inputs on the card) of
-            each kernel, its plain version and, for gf_matmul, one float32
-            torch.matmul + torch.remainder as a yardstick, beside the
-            least time the card could take; host<->device copy rates.
+            known-answer check against digests of the JAX reference; the
+            peak device memory of each op;
+5. times    CUDA-event times (warm-up excluded, inputs on the card) of
+            each kernel (``ms``: median of single calls on an idle card;
+            ``ms_back_to_back``: calls launched back to back), its
+            wrapper's host time per call, its plain version and one
+            float32 torch.matmul + torch.remainder as a yardstick (for
+            circulant_encode over the dense encode matrix), beside the
+            least time the card could take and the share of it reached
+            in ``ms``; host<->device copy rates.
 
 Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -79,12 +90,26 @@ def nvidia_smi() -> str:
 
 
 # ------------------------------------------------------------------ timing
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``."""
+def warm(fn, calls: int, seconds: float) -> None:
+    """Run ``fn()`` at least ``calls`` times and for at least ``seconds``
+    of synchronised work: after the smoke's host-side gaps (frees,
+    allocations, checks) a short kernel's first ~30 launches ran 5-15%
+    slower than the rest, so short kernels warm by time, not by count."""
     import torch
-    for _ in range(warmup):
+    t_end = time.perf_counter() + seconds
+    n = 0
+    while n < calls or time.perf_counter() < t_end:
         fn()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        n += 1
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median of ``reps`` CUDA-event timings of one ``fn()`` each, started
+    on an idle device, after ``warmup`` calls: the host's launch work
+    counts too.  The method of every ``ms`` since the first slice."""
+    import torch
+    warm(fn, warmup, 0.0)
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -97,6 +122,38 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def time_back_to_back_ms(fn, reps: int, warmup: int, warm_s: float,
+                         ) -> float:
+    """Device time of one call of ``fn()``: CUDA events around ``reps``
+    calls launched back to back, over ``reps``, after a warm-up of at
+    least ``warmup`` calls and ``warm_s`` seconds.  The host's work
+    between launches hides behind the device's."""
+    import torch
+    warm(fn, warmup, warm_s)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Host time of one ``fn()`` in microseconds: ``reps`` calls queued
+    without a synchronise between them, so each returns once it has
+    launched."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 def bound(nbytes: float, ops: float, mem_rate: float) -> tuple[float, str]:
     t_bytes = nbytes / mem_rate * 1e3
     t_ops = ops / OPS_PEAK[0] * 1e3
@@ -104,7 +161,39 @@ def bound(nbytes: float, ops: float, mem_rate: float) -> tuple[float, str]:
 
 
 # ------------------------------------------------------------------ phases
-def phase_kernels(torch, gfm, circ, ref, s_main: int) -> dict:
+def gf_matmul_grid(torch, gfm, ref, rnd, cmp, p: int) -> None:
+    """gf_matmul over m x k at modulus p, each case on its own mix of
+    stream length, row-source split, batching and input range."""
+    streams = (1, 3, 4, 1000, 1027, 4096, 5003, 66000)
+    cases = [(m, k) for m in (1, 2, 3, 16, 17, 18, 24, 32, 33, 64, 65)
+             for k in (1, 9, 16, 257, 300)]
+    for i, (m, k) in enumerate(cases):
+        s = streams[i % len(streams)]
+        nsrc = min(k, 1 + i % 4)
+        cuts = [1] * (nsrc - 1) + [k - (nsrc - 1)]    # uneven: 1, .., rest
+        if nsrc > 1 and i % 2:
+            cuts = cuts[::-1]
+        # unbatched / one a for the batch / one a per element, each with
+        # its own input range: reduced, unreduced, any int32
+        batch = (None, 3, 3)[i % 3]
+        lo, hi = ((-2 ** 31, 2 ** 31 - 1), (0, p), (0, 4 * p))[i % 3]
+        lead = () if batch is None else (batch,)
+        srcs = []
+        for j, r in enumerate(cuts):
+            if (i + j) % 5 == 4:    # a base 4 bytes past a 16-byte boundary
+                flat = rnd((1 + r * s * (batch or 1),), p, lo, hi)
+                srcs.append(flat[1:].view(lead + (r, s)))
+            else:
+                srcs.append(rnd(lead + (r, s), p, lo, hi))
+        a = rnd(((batch,) if i % 3 == 2 else ()) + (m, k), p, lo, hi)
+        shapes = [tuple(x.shape) for x in srcs]
+        cmp("gf_matmul", gfm(a, tuple(srcs), p),
+            ref.gf_matmul_ref(a, torch.cat(srcs, dim=-2), p),
+            f"p={p} a{tuple(a.shape)} sources {shapes} range [{lo}, {hi})")
+
+
+def phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main: int,
+                  ) -> dict:
     """Each kernel vs its plain version, exact; returns max |diff| per
     kernel.  These launches are outside the main path's count."""
     dev = "cuda"
@@ -112,9 +201,9 @@ def phase_kernels(torch, gfm, circ, ref, s_main: int) -> dict:
     diffs = {"gf_matmul": 0, "circulant_encode": 0}
     cases = 0
 
-    def rnd(shape, p):
-        return torch.randint(0, p, shape, generator=gen, dtype=torch.int32,
-                             device=dev)
+    def rnd(shape, p, lo=0, hi=None):
+        return torch.randint(lo, p if hi is None else hi, shape,
+                             generator=gen, dtype=torch.int32, device=dev)
 
     def cmp(name, got, want, what):
         nonlocal cases
@@ -126,7 +215,12 @@ def phase_kernels(torch, gfm, circ, ref, s_main: int) -> dict:
         cases += 1
 
     s_odd = (1 << 20) + 3
+    folds = {}
     for p in (5, 257, 46337):
+        folds[p] = fold_mismatches(p)
+        require(folds[p] == 0, f"Barrett fold exact for every uint32 at p={p}"
+                f" ({folds[p]} mismatches)")
+        gf_matmul_grid(torch, gfm, ref, rnd, cmp, p)
         for m, k, s in ((2, 8, s_odd), (16, 16, 1 << 20), (3, 300, 640),
                         (128, 128, 256), (1, 7, 130)):
             a, b = rnd((m, k), p), rnd((k, s), p)
@@ -160,15 +254,26 @@ def phase_kernels(torch, gfm, circ, ref, s_main: int) -> dict:
     cmp("circulant_encode", circ(d, spec.c, P),
         ref.circulant_encode_ref(d, spec.c, P), f"main ({n},{s_main})")
     del d
-    for m, f in ((n, None), (n + 2, None), (2, 1), (2, 4)):
-        a = rnd((m, n if f is None else K), P)
-        b = rnd((n, s_main) if f is None else (f, K, s_main), P)
-        cmp("gf_matmul", gfm(a, b, P), ref.gf_matmul_ref(a, b, P),
-            f"main a{tuple(a.shape)} b{tuple(b.shape)}")
-        del a, b
+    for a_shape, src_shapes in main_matmul_shapes(n, s_main):
+        a = rnd(a_shape, P)
+        srcs = tuple(rnd(x, P) for x in src_shapes)
+        cmp("gf_matmul", gfm(a, srcs, P), ref.gf_matmul_ref(a, srcs, P),
+            f"main a{a_shape} sources {src_shapes}")
+        del a, srcs
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    return {"diffs": diffs, "cases": cases}
+    return {"diffs": diffs, "cases": cases, "fold_mismatches": folds}
+
+
+def main_matmul_shapes(n: int, s: int) -> list:
+    """gf_matmul's operands on the main path, in the row-source form its
+    callers hand it: decode and decode+repair (two failed nodes) over the
+    k data and k redundancy downloads, regenerate of 1 and 4 nodes over
+    r_prev beside the k helper rows."""
+    return [((n, n), ((K, s), (K, s))),
+            ((n + 2, n), ((K, s), (K, s))),
+            ((2, K + 1), ((1, s), (K, s))),
+            ((2, K + 1), ((4, 1, s), (4, K, s)))]
 
 
 def known_answer(torch, msr_mod, spec) -> None:
@@ -204,14 +309,34 @@ def phase_main(torch, np, msr_mod, plan_mod, gfm, circ, payload_bytes: int,
     payload = np.random.default_rng(0).integers(
         0, 256, size=payload_bytes, dtype=np.uint8).tobytes()
     secs: dict = {}
+    peak: dict = {}           # per op: peak device bytes over the bytes held
+    slack = 4 << 20           # allocator rounding of the large blocks
 
     def clock(name, fn):
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         secs[name] = time.perf_counter() - t0
+        top = torch.cuda.max_memory_allocated()
+        peak[name] = {"max_memory_allocated": top, "over_base": top - base}
         return out
+
+    def one_launch(name, fn):
+        """fn() must be exactly one gf_matmul launch and nothing else that
+        counts: no epilogue, no second product."""
+        n0 = gfm.launches
+        out = fn()
+        require(gfm.launches == n0 + 1,
+                f"{name} is one gf_matmul launch ({gfm.launches - n0})")
+        return out
+
+    def require_peak(name, nbytes, what):
+        require(peak[name]["over_base"] <= nbytes + slack,
+                f"{name} peaks at {peak[name]['over_base']} B over its "
+                f"inputs, more than {nbytes} B ({what})")
 
     gfm.launches = 0
     circ.launches = 0
@@ -233,22 +358,35 @@ def phase_main(torch, np, msr_mod, plan_mod, gfm, circ, payload_bytes: int,
                                         for pl in plans], device="cuda")]
         return r_prevs, nxt
 
-    # node 3 dies: regenerated from d = k+1 determined helpers
+    # node 3 dies: regenerated from d = k+1 determined helpers; every
+    # regenerate is one launch whose only allocation is its output
     r1, n1 = helpers([3])
-    pair = clock("regenerate_1", lambda: code.regenerate_batch([3], r1, n1))
-    require(torch.equal(pair[0, 0], enc.data[2])
-            and torch.equal(pair[0, 1], enc.red[2]),
-            "regenerated node 3 is bit-exact")
-    del pair
+    for name in ("regenerate_1", "regenerate_1_again"):
+        pair = clock(name, lambda: one_launch(
+            name, lambda: code.regenerate_batch([3], r1, n1)))
+        require(torch.equal(pair[0, 0], enc.data[2])
+                and torch.equal(pair[0, 1], enc.red[2]),
+                "regenerated node 3 is bit-exact")
+        require_peak(name, pair.numel() * 4, "its output")
+        del pair
+    a3, r3 = clock("regenerate_single", lambda: one_launch(
+        "regenerate_single", lambda: code.regenerate(3, r1[0], n1[0])))
+    require(torch.equal(a3, enc.data[2]) and torch.equal(r3, enc.red[2]),
+            "single-node regenerate of node 3 is bit-exact")
+    require_peak("regenerate_single", 2 * a3.numel() * 4, "its output")
+    del a3, r3
     nodes4 = [3, 7, 11, 16]
     r4, n4 = helpers(nodes4)
-    pairs = clock("regenerate_4", lambda: code.regenerate_batch(nodes4, r4,
-                                                                n4))
-    for j, i in enumerate(nodes4):
-        require(torch.equal(pairs[j, 0], enc.data[i - 1])
-                and torch.equal(pairs[j, 1], enc.red[i - 1]),
-                f"batched regenerate node {i} bit-exact")
-    del pairs, n4, r4
+    for name in ("regenerate_4", "regenerate_4_again"):
+        pairs = clock(name, lambda: one_launch(
+            name, lambda: code.regenerate_batch(nodes4, r4, n4)))
+        for j, i in enumerate(nodes4):
+            require(torch.equal(pairs[j, 0], enc.data[i - 1])
+                    and torch.equal(pairs[j, 1], enc.red[i - 1]),
+                    f"batched regenerate node {i} bit-exact")
+        require_peak(name, pairs.numel() * 4, "its output")
+        del pairs
+    del n4, r4
 
     # any-k decode from a seeded random k-subset, twice
     subset = sorted(int(x) + 1 for x in
@@ -269,13 +407,19 @@ def phase_main(torch, np, msr_mod, plan_mod, gfm, circ, payload_bytes: int,
     failed = [2, 9]
     use = [i for i in range(1, n + 1) if i not in failed][:K]
     idx = torch.as_tensor([i - 1 for i in use], device="cuda")
-    dat, red = clock("reconstruct_with_repair",
-                     lambda: code.reconstruct_with_repair(
-                         use, enc.data[idx], enc.red[idx], failed))
     fidx = torch.as_tensor([f - 1 for f in failed], device="cuda")
-    require(torch.equal(dat, enc.data) and torch.equal(red, enc.red[fidx]),
-            "multi-failure repair bit-exact")
-    del dat, red
+    for name in ("reconstruct_with_repair", "reconstruct_with_repair_again"):
+        dat, red = clock(name, lambda: code.reconstruct_with_repair(
+            use, enc.data[idx], enc.red[idx], failed))
+        require(torch.equal(dat, enc.data)
+                and torch.equal(red, enc.red[fidx]),
+                "multi-failure repair bit-exact")
+        # the smoke's two helper gathers and the (n + F, S) output; a
+        # concatenated download would add 2k * S * 4 bytes
+        require_peak(name, (2 * K + n + len(failed)) * s * 4,
+                     "the helper gathers and the output: no concatenated "
+                     "download")
+        del dat, red
 
     # the planned path, then a repeat that must compile nothing new
     dl = torch.cat([enc.data[idx], enc.red[idx]])
@@ -285,13 +429,22 @@ def phase_main(torch, np, msr_mod, plan_mod, gfm, circ, payload_bytes: int,
 
     def planned():
         out = {"encode": code.encode_planned(enc.data).host(),
-               "regen": code.repair.regenerate_batch_planned(
-                   [3], r1, n1).host(),
+               "regen": one_launch(
+                   "regenerate_batch_planned",
+                   lambda: code.repair.regenerate_batch_planned(
+                       [3], r1, n1)).host(),
+               "regen_single": one_launch(
+                   "regenerate_planned",
+                   lambda: code.repair.regenerate_planned(
+                       3, r1[0], n1[0])).host(),
                "decode": code.repair.apply_planned(mat, dl).host()}
         require(np.array_equal(out["encode"], red_h), "encode_planned")
         require(np.array_equal(out["regen"][0, 0], data_h[2])
                 and np.array_equal(out["regen"][0, 1], red_h[2]),
                 "regenerate_batch_planned")
+        require(np.array_equal(out["regen_single"][0], data_h[2])
+                and np.array_equal(out["regen_single"][1], red_h[2]),
+                "regenerate_planned")
         require(np.array_equal(out["decode"], data_h), "apply_planned")
 
     clock("planned", planned)
@@ -299,7 +452,7 @@ def phase_main(torch, np, msr_mod, plan_mod, gfm, circ, payload_bytes: int,
     clock("planned_again", planned)
     st1 = plan_mod.plan_stats()
     require(st1.compiles == st0.compiles and st1.misses == st0.misses
-            and st1.hits >= st0.hits + 3,
+            and st1.hits >= st0.hits + 4,
             f"planned repeat compiles nothing new ({st0} -> {st1})")
     launches = {"gf_matmul": gfm.launches,
                 "circulant_encode": circ.launches}
@@ -308,7 +461,8 @@ def phase_main(torch, np, msr_mod, plan_mod, gfm, circ, payload_bytes: int,
     del enc, dl, r1, n1
     torch.cuda.empty_cache()
     return {"launches": launches, "symbols_per_block": s, "subset": subset,
-            "failed": failed, "plan_stats": list(st1), "seconds": secs}
+            "failed": failed, "plan_stats": list(st1), "seconds": secs,
+            "peak_bytes": peak}
 
 
 def phase_times(torch, gfm, circ, ref, s: int, mem_rate: float) -> dict:
@@ -325,38 +479,51 @@ def phase_times(torch, gfm, circ, ref, s: int, mem_rate: float) -> dict:
                              device="cuda")
 
     rows = []
-    d = rnd((n, s))
-    nbytes = 2 * n * s * 4
-    t_b, by = bound(nbytes, 2 * n * K * s, mem_rate)
-    rows.append({"name": "circulant_encode", "shape": f"({n},{s})",
-                 "ms": time_ms(lambda: circ(d, spec.c, P), 10),
-                 "plain_ms": time_ms(lambda: ref.circulant_encode_ref(
-                     d, spec.c, P), 3, warmup=1),
-                 "library_ms": None, "bound_ms": t_b, "bound_by": by})
-    del d
-    torch.cuda.empty_cache()
-    # decode (n, n), decode+repair (n+2, n), regenerate F = 1 and 4
-    for what, am, ak, f in (("decode", n, n, None),
-                            ("decode_repair", n + 2, n, None),
-                            ("regenerate_F1", 2, K, 1),
-                            ("regenerate_F4", 2, K, 4)):
-        a = rnd((am, ak))
-        b = rnd((ak, s) if f is None else (f, ak, s))
-        fb = f or 1
-        nbytes = (am * ak + fb * ak * s + fb * am * s) * 4
-        t_b, by = bound(nbytes, 2 * fb * am * ak * s, mem_rate)
-        af, bf = a.float(), b.float()
-        lib = lambda: torch.remainder(torch.matmul(af, bf), P)  # noqa: E731
-        require(torch.equal(lib().to(torch.int32), gfm(a, b, P)),
-                f"float32 yardstick agrees at {what}")
-        rows.append({"name": "gf_matmul", "op": what,
-                     "shape": f"a{tuple(a.shape)} b{tuple(b.shape)}",
-                     "ms": time_ms(lambda: gfm(a, b, P), 10),
-                     "plain_ms": time_ms(lambda: ref.gf_matmul_ref(a, b, P),
-                                         3, warmup=1),
+
+    def row(name, what, shape, kernel, plain, lib, nbytes, ops):
+        t_b, by = bound(nbytes, ops, mem_rate)
+        ms = time_ms(kernel, 10)
+        rows.append({"name": name, "op": what, "shape": shape, "ms": ms,
+                     "ms_back_to_back": time_back_to_back_ms(
+                         kernel, 20, warmup=10, warm_s=0.1),
+                     "host_us": host_us(kernel, 20),
+                     "plain_ms": time_ms(plain, 3, warmup=1),
                      "library_ms": time_ms(lib, 10),
-                     "bound_ms": t_b, "bound_by": by})
-        del a, b, af, bf
+                     "bound_ms": t_b, "bound_by": by,
+                     "share_of_bound": t_b / ms})
+
+    # encode; yardstick: the dense (n, n) encode matrix over the data in
+    # float32 — sums of k products of at most 256^2, exact below 2^24
+    d = rnd((n, s))
+    enc_f = torch.from_numpy(spec.matrix_m().T.astype("float32")).cuda()
+    d_f = d.float()
+    lib = lambda: torch.remainder(torch.matmul(enc_f, d_f), P)  # noqa: E731
+    require(torch.equal(lib().to(torch.int32), circ(d, spec.c, P)),
+            "float32 yardstick agrees at encode")
+    row("circulant_encode", None, f"({n},{s})",
+        lambda: circ(d, spec.c, P),
+        lambda: ref.circulant_encode_ref(d, spec.c, P), lib,
+        2 * n * s * 4, 2 * n * K * s)
+    del d, d_f
+    torch.cuda.empty_cache()
+    # gf_matmul at the main path's shapes, in the row-source form its
+    # callers use
+    for what, (a_shape, src_shapes) in zip(
+            ("decode", "decode_repair", "regenerate_F1", "regenerate_F4"),
+            main_matmul_shapes(n, s)):
+        a = rnd(a_shape)
+        srcs = tuple(rnd(x) for x in src_shapes)
+        fb = srcs[0].shape[0] if srcs[0].dim() == 3 else 1
+        m, k = a_shape
+        af, bf = a.float(), torch.cat(srcs, dim=-2).float()
+        lib = lambda: torch.remainder(torch.matmul(af, bf), P)  # noqa: E731
+        require(torch.equal(lib().to(torch.int32), gfm(a, srcs, P)),
+                f"float32 yardstick agrees at {what}")
+        row("gf_matmul", what, f"a{a_shape} sources {src_shapes}",
+            lambda: gfm(a, srcs, P), lambda: ref.gf_matmul_ref(a, srcs, P),
+            lib, (a.numel() + sum(x.numel() for x in srcs) + fb * m * s) * 4,
+            2 * fb * m * k * s)
+        del a, srcs, af, bf
         torch.cuda.empty_cache()
     # host <-> device copies of 1 GiB, pinned and pageable
     nb = 1 << 30
@@ -403,6 +570,7 @@ def main() -> int:
     from repro_torch.exec import plan as plan_mod
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.circulant_encode import circulant_encode as circ
+    from repro_torch.kernels.gf_matmul import fold_mismatches
     from repro_torch.kernels.gf_matmul import gf_matmul as gfm
 
     t_start = time.perf_counter()
@@ -430,9 +598,10 @@ def main() -> int:
               "full_payload_mib": 1024})
 
     t0 = time.perf_counter()
-    kern = phase_kernels(torch, gfm, circ, ref, s_main)
+    kern = phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main)
     emit({"phase": "kernels", "ok": True, "cases": kern["cases"],
           "max_abs_diff_vs_plain": kern["diffs"],
+          "fold_mismatches": kern["fold_mismatches"],
           "seconds": time.perf_counter() - t0})
 
     known_answer(torch, msr_mod, CodeSpec.make(K, P))
@@ -468,9 +637,11 @@ def main() -> int:
             "launches": main_res["launches"][kname],
             "max_abs_err": kern["diffs"][kname],
             "max_abs_diff_vs_plain": kern["diffs"][kname],
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "ms": row["ms"], "ms_back_to_back": row["ms_back_to_back"],
+            "host_us": row["host_us"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": row["shape"]})
+            "library_ms": row["library_ms"], "shape": row["shape"],
+            "share_of_bound": row["share_of_bound"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -53,8 +53,9 @@ class DoubleCirculantMSR:
         Validated code specification.
     matmul : callable, optional
         Fully custom ``(a, b, p) -> (a @ b) mod p`` on tensors.  Injecting
-        one disables the circulant encode kernel and the fused regenerate
-        epilogue so EVERY field operation flows through it.
+        one disables the circulant encode kernel and the fused engine's
+        row-source products, so EVERY field operation flows through it,
+        always with one concatenated ``b``.
     backend : str, optional
         Pin a registered dispatch backend (``cuda``, ``torch-int32``); None
         auto-selects from the device.

@@ -14,13 +14,18 @@ repair matrix R applied to H = [r_{i-1}; a_{i+1}; ...; a_{i+k}]:
       row 1 (re-encode): [0,          c_k,  c_{k-1},     ...,          c_1]
 
 R is the same for every node (circulant invariance), so F failed nodes
-regenerate in ONE batched kernel launch against the shared matrix.
+regenerate in ONE batched kernel launch against the shared matrix.  The
+fused engine hands that launch r_{i-1} and the k helper blocks as two row
+sources where they lie (``make_regen_fn``): no concatenation, no
+epilogue.
 
 Reconstruction (paper §III-B).  The 2k x 2k system matrix depends only on
 which k nodes are read, so inverses are cached in an LRU keyed by the
 code family and the sorted node subset.  Multi-failure repair stacks the
 re-encode rows of the failed nodes under the inverse, so the full data and
-every lost redundancy block come out of one decode matmul.
+every lost redundancy block come out of one decode matmul, whose
+contraction operand is the data and redundancy downloads as two row
+sources (no concatenated copy) on a fused engine.
 """
 from __future__ import annotations
 
@@ -192,8 +197,10 @@ class RepairEngine:
         Backend ``(a, b, p) -> (a @ b) mod p`` primitive on tensors.
     fused : bool
         False for custom injected matmuls: every field op goes through the
-        injected function — regeneration is the literal stacked
-        (2, k+1) @ (k+1, S) product instead of matmul + axpy epilogue.
+        injected function with one concatenated ``b`` — regeneration is
+        the literal stacked (2, k+1) @ (k+1, S) product and a decode gets
+        the concatenated download.  True hands the backend's matmul row
+        sources where they lie (its ``b`` may be a tuple).
     inverse_cache_size : int
         Capacity of :attr:`decode_cache`.
     planner : repro_torch.exec.plan.PlanCache, optional
@@ -252,8 +259,8 @@ class RepairEngine:
 
     def regenerate_stacked(self, i: int, r_prev, next_data) -> torch.Tensor:
         """Fused newcomer compute: one (2, k+1) repair-matrix application —
-        one matmul launch plus the row-0 axpy epilogue (custom matmuls get
-        the literal stacked product).
+        one matmul launch over the row sources (r_prev, next_data) (custom
+        matmuls get the literal stacked product).
 
         Returns the (2, S) stack [a_{i-1}; r_i] — bit-exactly the lost
         node's pair.
@@ -376,8 +383,8 @@ class RepairEngine:
         if order != list(range(self.k)):
             sel = torch.as_tensor(order, device=dev)
             data_blocks, red_blocks = data_blocks[sel], red_blocks[sel]
-        downloads = torch.cat([data_blocks, red_blocks], dim=0)
-        return self.apply(self.decode_matrix(subset), downloads)
+        return self._decode(self.decode_matrix(subset), data_blocks,
+                            red_blocks)
 
     def reconstruct_with_repair(self, node_ids: Sequence[int], data_blocks,
                                 red_blocks, failed: Sequence[int],
@@ -387,10 +394,21 @@ class RepairEngine:
         sorted."""
         subset = tuple(int(x) for x in node_ids)
         dev = self._dev(data_blocks, red_blocks)
-        downloads = torch.cat([as_int32(data_blocks, self.p, dev),
-                               as_int32(red_blocks, self.p, dev)], dim=0)
         mat = self.decode_repair_matrix(subset, failed)
-        return self.split_decode_output(self.apply(mat, downloads))
+        return self.split_decode_output(self._decode(
+            mat, as_int32(data_blocks, self.p, dev),
+            as_int32(red_blocks, self.p, dev)))
+
+    def _decode(self, mat, data_blocks: torch.Tensor,
+                red_blocks: torch.Tensor) -> torch.Tensor:
+        """(mat @ [data_blocks; red_blocks]) mod p.  A fused engine hands
+        the two downloads to the matmul as row sources where they lie; a
+        custom matmul gets them concatenated, as the reference builds
+        them."""
+        blocks = (data_blocks, red_blocks) if self._fused else \
+            torch.cat([data_blocks, red_blocks], dim=0)
+        return self._mm(as_int32(mat, self.p, data_blocks.device), blocks,
+                        self.p)
 
 
 __all__ = ["RepairEngine", "DecodeInverseCache", "DecodeCacheInfo",

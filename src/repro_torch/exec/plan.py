@@ -106,19 +106,19 @@ def make_regen_fn(mm: Callable, p: int) -> Callable:
     """The fused newcomer compute, the single definition both execution
     modes run (planned ops here, the eager paths in ``core/repair.py``).
 
-    Algebraically R @ [r_prev; next_data]; the r_prev column is peeled out
-    of the dispatched matmul into a row-0 scale-accumulate epilogue (R[1, 0]
-    is 0).  The matmul is one launch for a single node or a whole batch
-    (``next_data`` (F, k, S) against the shared (2, k) matrix); the
-    epilogue is two elementwise torch ops, in place on the fresh matmul
-    output.  Exactness: the matmul output is < p and the epilogue term is
-    <= (p-1)^2, inside the int32 envelope before the single fold.
+    One launch of the full (2, k+1) repair matrix R over the row sources
+    ``(r_prev, next_data)`` — for a single node (1, S) and (k, S), for a
+    batch (F, 1, S) and (F, k, S) against the shared R — so the r_prev row
+    is read where it lies and nothing runs after the matmul.  The reference
+    peels R's column 0 out into a row-0 scale-accumulate epilogue after a
+    (2, k) matmul; the result is the same bit for bit, because GF(p)
+    arithmetic is exact — both compute R @ [r_prev; next_data] mod p — and
+    R[1, 0] = 0, so the r_prev column adds nothing to the re-encode row.
+    ``mm`` must take the tuple form of its contraction operand (both
+    dispatch backends do).
     """
     def fn(rmat, r_prev, next_data):
-        part = mm(rmat[:, 1:].contiguous(), next_data, p)
-        row0 = part[..., 0, :]
-        row0.add_(r_prev * rmat[0, 0]).remainder_(p)
-        return part
+        return mm(rmat, (r_prev.unsqueeze(-2), next_data), p)
 
     return fn
 
@@ -327,7 +327,8 @@ class PlanCache:
 
     def regenerate(self, rmat, r_prev, next_data) -> PlanResult:
         """The fused (2, k+1) repair-matrix application: one matmul launch
-        plus the row-0 axpy epilogue, one plan per (k, bucket)."""
+        over the row sources (r_prev, next_data), one plan per (k,
+        bucket)."""
         bufs: list = []
         rmat = as_int32(rmat, self.p, self.device)
         r_prev = self._stage(r_prev, bufs)

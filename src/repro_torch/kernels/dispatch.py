@@ -3,7 +3,8 @@
 
 Every hot path of the MSR layer reduces to three primitives over GF(p):
 
-    matmul(a, b, p)              (m, k) @ (k, s) mod p, optionally batched
+    matmul(a, b, p)              (m, k) @ (k, s) mod p, optionally batched;
+                                 b may be a tuple of 1-4 row sources
     circulant_encode(data, c, p) the paper's eq. (2), k MACs/symbol
     axpy(y, alpha, x, p)         the regenerate-path scale+accumulate
 
@@ -19,6 +20,13 @@ semantics on torch tensors:
                      the device, as the reference's ``pallas`` backend
                      leaves it to ``gf_axpy_ref``.  On a CPU tensor each
                      kernel wrapper runs its plain version.
+
+Both backends take ``matmul``'s contraction operand as one tensor or as
+a tuple of 1-4 row sources (``ref.matmul_sources``), read as if
+concatenated along the contraction axis: ``cuda`` hands them to the
+kernel where they lie, ``torch-int32`` concatenates them first.  The
+fused repair engine uses the tuple form; a custom injected matmul is
+never given one.
 
 Selection is automatic from ``(device, p, k)`` via :func:`select`: a CUDA
 device gets ``cuda``, the CPU gets ``torch-int32``; the automatic rule
@@ -57,7 +65,7 @@ def fold_count(backend_name: str, p: int, k: int) -> int:
 class GFBackend:
     """One exact implementation of the three GF primitives on tensors."""
     name: str
-    matmul: Callable            # (a, b, p) -> (m, s) or (F, m, s) int32
+    matmul: Callable            # (a, b | sources, p) -> (m, s) or (F, m, s)
     circulant_encode: Callable  # (data, c: tuple, p) -> (n, s) int32
     axpy: Callable              # (y, alpha, x, p) -> int32
 

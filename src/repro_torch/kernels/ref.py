@@ -22,14 +22,38 @@ def _reduced(x: torch.Tensor, p: int) -> torch.Tensor:
     return torch.remainder(x.to(torch.int64), p)
 
 
-def gf_matmul_ref(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
+MAX_SOURCES = 4   # row sources a GF matmul's contraction operand may take
+
+
+def matmul_sources(b) -> tuple:
+    """The contraction operand ``b`` of a GF matmul as a tuple of row
+    sources: one tensor, or a tuple or list of 1 to ``MAX_SOURCES``
+    tensors read as if concatenated along the contraction axis (dim -2)."""
+    if isinstance(b, torch.Tensor):
+        return (b,)
+    if not isinstance(b, (tuple, list)):
+        raise TypeError(f"b must be a tensor or a tuple of tensors, got "
+                        f"{type(b)}")
+    if not 1 <= len(b) <= MAX_SOURCES:
+        raise ValueError(f"b takes 1 to {MAX_SOURCES} row sources, got "
+                         f"{len(b)}")
+    for i, x in enumerate(b):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"b[{i}] must be a torch.Tensor, got {type(x)}")
+    return tuple(b)
+
+
+def gf_matmul_ref(a: torch.Tensor, b, p: int) -> torch.Tensor:
     """(a @ b) mod p with exact integer accumulation.
 
     a: (m, k) or (F, m, k); b: (k, s) or (F, k, s) integer tensors on
-    one device.  Leading batch axes broadcast.  Returns int32 on that
-    device.
+    one device, or a tuple of 1-4 such row sources, concatenated here
+    along the contraction axis.  Leading batch axes broadcast.  Returns
+    int32 on that device.
     """
     require_int32_envelope(p)
+    src = matmul_sources(b)
+    b = src[0] if len(src) == 1 else torch.cat(src, dim=-2)
     if a.shape[-1] != b.shape[-2]:
         raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
@@ -82,4 +106,5 @@ def gf_axpy_ref(y: torch.Tensor, alpha: int, x: torch.Tensor,
                            p).to(torch.int32)
 
 
-__all__ = ["gf_matmul_ref", "circulant_encode_ref", "gf_axpy_ref"]
+__all__ = ["gf_matmul_ref", "circulant_encode_ref", "gf_axpy_ref",
+           "matmul_sources", "MAX_SOURCES"]

@@ -20,7 +20,7 @@ from repro_torch.core import msr as tmsr
 from repro_torch.exec import plan as tplan
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels.circulant_encode import circulant_encode
-from repro_torch.kernels.gf_matmul import gf_matmul
+from repro_torch.kernels.gf_matmul import fold_mismatches, gf_matmul
 
 P = 257
 pytestmark = pytest.mark.cuda
@@ -48,6 +48,69 @@ def test_gf_matmul_matches_plain(cuda, p):
         b = torch.full((k, 384), p - 1, dtype=torch.int32, device=cuda)
         assert torch.equal(gf_matmul(a, b, p), ref.gf_matmul_ref(a, b, p))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("p", [5, 257, 46337])
+def test_gf_matmul_row_sources_match_plain(cuda, p):
+    """The kernel on 1-4 row sources, every tile width (m up to 16, 32, 64
+    and past it), k across a staging chunk, aligned and unaligned streams,
+    a misaligned source base, batching with a shared and a per-element a,
+    and unreduced inputs."""
+    rng = np.random.default_rng(p)
+    cases = [(m, k, s) for m in (1, 2, 16, 18, 33, 65) for k in (1, 9, 300)
+             for s in (3, 1027, 4096)]
+    for i, (m, k, s) in enumerate(cases):
+        nsrc = min(k, 1 + i % 4)
+        cuts = [k - nsrc + 1] + [1] * (nsrc - 1)
+        lead = () if i % 3 == 0 else (2,)
+        hi = p if i % 2 else 4 * p
+        srcs = [on(cuda, rng.integers(-hi, hi, lead + (r, s), dtype=np.int32))
+                for r in cuts]
+        if i % 5 == 4:        # first source 4 bytes past a 16-byte boundary
+            flat = torch.zeros(1 + srcs[0].numel(), dtype=torch.int32,
+                               device=cuda)
+            flat[1:] = srcs[0].reshape(-1)
+            srcs[0] = flat[1:].view(srcs[0].shape)
+        a = on(cuda, rng.integers(-hi, hi, (lead if i % 3 == 2 else ()) +
+                                  (m, k), dtype=np.int32))
+        n0 = gf_matmul.launches
+        got = gf_matmul(a, tuple(srcs), p)
+        assert gf_matmul.launches == n0 + 1
+        assert torch.equal(got, ref.gf_matmul_ref(a, torch.cat(srcs, -2), p)),\
+            (m, k, s, cuts, lead)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("p", [5, 257, 46337])
+def test_barrett_fold_exact_for_every_uint32(cuda, p):
+    assert fold_mismatches(p) == 0
+
+
+@pytest.mark.parametrize("planned", [False, True])
+def test_every_regenerate_is_one_launch(cuda, planned):
+    spec = CodeSpec.make(4, P)
+    code = tmsr.DoubleCirculantMSR(spec)
+    data = on(cuda, rand((spec.n, 4099), P, 7))
+    red = code.encode(data)
+    nodes = [2, 5, 8]
+    plans = [code.repair_plan(i) for i in nodes]
+    r_prevs = red[torch.as_tensor([pl.prev_node - 1 for pl in plans])]
+    helpers = data[torch.as_tensor([list(pl.data_indices) for pl in plans])]
+    eng = code.repair
+    ops = ([lambda: eng.regenerate_planned(2, r_prevs[0], helpers[0]).host(),
+            lambda: eng.regenerate_batch_planned(nodes, r_prevs,
+                                                 helpers).host()]
+           if planned else
+           [lambda: torch.stack(eng.regenerate(2, r_prevs[0], helpers[0])),
+            lambda: eng.regenerate_batch(nodes, r_prevs, helpers)])
+    for op in ops:
+        n0 = gf_matmul.launches
+        out = npy(op())
+        assert gf_matmul.launches == n0 + 1
+        pairs = out[None] if out.ndim == 2 else out
+        for j, pair in enumerate(pairs):
+            np.testing.assert_array_equal(pair[0], npy(data[nodes[j] - 1]))
+            np.testing.assert_array_equal(pair[1], npy(red[nodes[j] - 1]))
 
 
 def test_gf_matmul_reduces_unreduced_inputs(cuda):
