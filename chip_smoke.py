@@ -3,10 +3,10 @@
 
 Run from the root of a checkout:
 
-    python3 chip_smoke.py [--payload-mib 1024]
+    python3 chip_smoke.py [--payload-mib 1024] [--store-mib 1024]
 
 It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
-``build/kernels/`` and runs five phases, each printing one JSON line:
+``build/kernels/`` and runs six phases, each printing one JSON line:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    both kernels, one nvcc per source, started together;
@@ -14,7 +14,8 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             exact equality (tolerance 0: GF arithmetic is exact), at the
             listed shapes, over gf_matmul's grid of m, k, stream lengths
             (aligned, unaligned, s < 4), 1-4 row sources, batching, p and
-            unreduced or negative inputs, and at the main path's shapes;
+            unreduced or negative inputs, and at the main path's and the
+            store path's shapes (store_matmul_shapes);
             plus the exhaustive check of the kernel's Barrett fold over
             every uint32 value at p in {5, 257, 46337};
 4. main     the port's main path at the repo's production width, [16, 8]
@@ -33,9 +34,24 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             float32 torch.matmul + torch.remainder as a yardstick (for
             circulant_encode over the dense encode matrix), beside the
             least time the card could take and the share of it reached
-            in ``ms``; host<->device copy rates.
+            in ``ms``; host<->device copy rates;
+6. store    the coded object store at [16, 8] over GF(257) on 20 nodes
+            with 64 KiB blocks, 16 objects of 64 MiB (1 GiB) plus an
+            array and a tree of card tensors: put (one encode launch per
+            window), healthy get (no launch), node 3 lost (degraded get,
+            coalesced repair: one launch per window), rack 0 lost
+            (degraded get, one launch per multi-loss decode), verify and
+            audit, a repeat put with zero new plan compiles, conversion
+            to product-matrix (16, 8, 14) and its batched repair, then a
+            known-answer digest of a small store workload against the JAX
+            reference's.  Each step reports wall ms, MB/s, launches, plan
+            stats, peak device memory, the staging pool and the
+            page-locked host bytes; put, the
+            rack-0 degraded get and drain run once more under
+            torch.profiler for device time by name and the device-busy
+            share.  ``--store-mib N`` cuts only this payload.
 
-Then a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line,
+Then a ``kernels`` JSON line (launches on the main and the store path), the ``nvidia-smi`` name/power-limit line,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the script exits non-zero.  Without CUDA, or run outside a checkout, it
 exits non-zero before printing any result.  The script imports nothing
@@ -63,6 +79,10 @@ KA_RED_SHA256 = \
     "07ba6cd2ac1b0edfdffd7faa39975fe120d14b8a34c90113377cdb4eb9e1ae55"
 KA_DECODE_REPAIR_SHA256 = \
     "ad2973ad89358dfaf2c9ee9f0259cbc9a7e2f3b6c6b213b9869e7f0036d1cfda"
+# Digest of the JAX reference's store_rehearsal() record (repro.store on
+# CPU): shares, CRC ledgers, drain reports and convert receipt.
+KA_STORE_SHA256 = \
+    "8a19c2bfc2a920b5463f3426b5e046a8e36129763c242aef7a29481202246d25"
 
 # Published peak device-memory rates (NVIDIA data sheets), by card name.
 MEM_PEAK = (("H100 PCIe", 2.0e12, "H100 PCIe data sheet 2.0 TB/s"),
@@ -193,7 +213,7 @@ def gf_matmul_grid(torch, gfm, ref, rnd, cmp, p: int) -> None:
 
 
 def phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main: int,
-                  ) -> dict:
+                  store_obj_bytes: int) -> dict:
     """Each kernel vs its plain version, exact; returns max |diff| per
     kernel.  These launches are outside the main path's count."""
     dev = "cuda"
@@ -260,6 +280,18 @@ def phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main: int,
         cmp("gf_matmul", gfm(a, srcs, P), ref.gf_matmul_ref(a, srcs, P),
             f"main a{a_shape} sources {src_shapes}")
         del a, srcs
+    # the store path's own shapes (phase store)
+    for s in (STORE_STRIPE, STORE_PUT_TILE * STORE_STRIPE):
+        d = rnd((n, s), P)
+        cmp("circulant_encode", circ(d, spec.c, P),
+            ref.circulant_encode_ref(d, spec.c, P), f"store put ({n},{s})")
+        del d
+    for what, a_shape, src_shapes in store_matmul_shapes(store_obj_bytes):
+        a = rnd(a_shape, P)
+        srcs = tuple(rnd(x, P) for x in src_shapes)
+        cmp("gf_matmul", gfm(a, srcs, P), ref.gf_matmul_ref(a, srcs, P),
+            f"store {what} a{a_shape} sources {src_shapes}")
+        del a, srcs
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return {"diffs": diffs, "cases": cases, "fold_mismatches": folds}
@@ -274,6 +306,34 @@ def main_matmul_shapes(n: int, s: int) -> list:
             ((n + 2, n), ((K, s), (K, s))),
             ((2, K + 1), ((1, s), (K, s))),
             ((2, K + 1), ((4, 1, s), (4, K, s)))]
+
+
+def store_matmul_shapes(obj_bytes: int) -> list:
+    """gf_matmul's operands on the store path (phase store), in the form
+    the store hands them over, at STORE_STRIPE symbols per block:
+    degraded-get decodes of 1..k lost data rows over one staged (2k, g*S)
+    download of g stripes, multi-loss decode+repair of one stripe with
+    1..k nodes lost (rack 0 takes 6-8 of a stripe's 16), the coalesced
+    single-loss repair over (r_prev, next_data) in a full and a ragged
+    window, and the product-matrix (16, 8, 14) class of the converted
+    object: its encode window, one repair window's helper sends (one
+    (1, q) matrix per helper) and its newcomer products (one (q, d)
+    matrix per stripe)."""
+    s, n = STORE_STRIPE, 2 * K
+    d = PM_CLASS[3]
+    q = d - K + 1                                   # 7 blocks per node
+    t_pm = -(-obj_bytes // (K * q * s))             # stripes of the object
+    f_pm = min(t_pm, STORE_REPAIR_TILE)
+    return ([("degraded get", (m, n), ((n, (1 + m % 4) * s),))
+             for m in range(1, K + 1)]
+            + [("multi-loss repair", (n + f, n), ((n, s),))
+               for f in (1, 6, 7, 8)]
+            + [("coalesced repair", (2, K + 1), ((f, 1, s), (f, K, s)))
+               for f in (STORE_REPAIR_TILE, 13)]
+            + [("product-matrix encode", (K * q, K * q), ((K * q, t_pm * s),)),
+               ("product-matrix helper sends", (d * f_pm, 1, q),
+                ((d * f_pm, q, s),)),
+               ("product-matrix repair", (f_pm, q, d), ((f_pm, d, s),))])
 
 
 def known_answer(torch, msr_mod, spec) -> None:
@@ -547,11 +607,348 @@ def phase_times(torch, gfm, circ, ref, s: int, mem_rate: float) -> dict:
     return {"rows": rows, "copies": copies}
 
 
+# --------------------------------------------------------------- store path
+STORE_NODES = 20            # bench_store.py's spec.n + 4, default 2 racks
+STORE_STRIPE = 1 << 16      # symbols per block: 64 KiB blocks, 1 MiB stripes
+STORE_OBJECTS = 16
+STORE_PUT_TILE = 64         # the store's default put_tile_stripes
+STORE_REPAIR_TILE = 64      # and repair_tile_tasks
+PM_CLASS = ("product-matrix", 16, 8, 14)
+
+
+def store_rehearsal(CodeSpec, Store, Scheduler, CodeClass, **store_kw,
+                    ) -> str:
+    """The store known-answer workload, on whichever package's classes it
+    is handed; returns the sha256 of its canonical JSON record.
+
+    [16, 8] over GF(257) on 20 nodes with 4099-symbol stripes; three
+    objects (1 MiB + 17 B, 300 KiB, 5 B) from ``default_rng(0)``; node 3
+    fails, is replaced and drained, then rack 0, then ``o0`` converts to
+    product-matrix (16, 8, 14), then node 5.  The record holds every
+    object's CRC ledger, the three drain reports, the convert receipt and
+    the sha256 of every share left, in (phys, key, stripe) order."""
+    import dataclasses
+
+    import numpy as np
+    store = Store(CodeSpec.make(K, P), n_nodes=STORE_NODES,
+                  stripe_symbols=4099, **store_kw)
+    sched = Scheduler(store)
+    store.subscribe(sched.on_event)
+    rng = np.random.default_rng(0)
+    objs = {}
+    for key, size in (("o0", (1 << 20) + 17), ("o1", 300 << 10), ("o2", 5)):
+        objs[key] = rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
+        store.put(key, objs[key])
+    drains = []
+
+    def lose(victims):
+        for v in victims:
+            store.fail_node(v)
+        for v in victims:
+            store.replace_node(v)
+        drains.append(sched.drain_all())
+
+    lose([3])
+    lose(list(store.layout.nodes_in(0)))
+    receipt = store.convert("o0", CodeClass(*PM_CLASS))
+    lose([5])
+    for key, payload in objs.items():
+        require(store.get(key) == payload, f"rehearsal object {key} reads "
+                f"back")
+    shares = []
+    for phys in range(1, store.n_nodes + 1):
+        held = store._shares[phys - 1]
+        for key, t in sorted(held):
+            share = held[(key, t)]
+            h = hashlib.sha256(str(int(share[0])).encode())
+            for blk in share[1:]:
+                h.update(np.ascontiguousarray(blk, dtype="<i4").tobytes())
+            shares.append([phys, key, t, h.hexdigest()])
+    doc = {"share_crcs": {k: store.stat(k).share_crcs for k in sorted(objs)},
+           "drains": [dataclasses.asdict(r) for r in drains],
+           "convert": {"key": receipt.key,
+                       "source": receipt.source.to_meta(),
+                       "target": receipt.target.to_meta(),
+                       "payload_bytes": receipt.payload_bytes,
+                       "source_stripes": receipt.source_stripes,
+                       "target_stripes": receipt.target_stripes,
+                       "degraded_source_stripes":
+                           receipt.degraded_source_stripes,
+                       "bytes_read": receipt.bytes_read,
+                       "latency_s": receipt.latency_s},
+           "shares": shares}
+    return hashlib.sha256(json.dumps(doc, sort_keys=True, separators=(
+        ",", ":")).encode()).hexdigest()
+
+
+def busy_share(torch, prof, wall_s: float) -> dict:
+    """Device time by name and the device-busy share of ``wall_s`` from a
+    ``torch.profiler`` run: the device's own events (kernels, copies)
+    summed by name from ``key_averages()``, busy time as the union of
+    their intervals."""
+    on_card = torch.autograd.DeviceType.CUDA
+    rows = [{"name": e.key[:90], "count": e.count,
+             "device_ms": e.self_device_time_total / 1e3}
+            for e in prof.key_averages() if e.device_type == on_card]
+    rows.sort(key=lambda r: -r["device_ms"])
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == on_card)
+    busy_us, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    out = {"by_name": rows[:12],
+           "kernel_ms": sum(r["device_ms"] for r in rows
+                            if "emcpy" not in r["name"]
+                            and "emset" not in r["name"]),
+           "copy_ms": sum(r["device_ms"] for r in rows
+                          if "emcpy" in r["name"]),
+           "device_busy_ms": busy_us / 1e3,
+           "wall_ms": wall_s * 1e3,
+           "device_busy_share": busy_us / 1e3 / (wall_s * 1e3)}
+    if not rows:
+        out["note"] = "key_averages() shows no device time"
+    return out
+
+
+def host_pinned(torch) -> dict:
+    """Byte counters of torch's page-locked host allocator
+    (``torch.cuda.host_memory_stats``, where this torch has it): what the
+    staging pools hold, since no result lands in page-locked memory."""
+    fn = getattr(torch.cuda, "host_memory_stats", None)
+    if fn is None:
+        return {"note": "torch.cuda.host_memory_stats is not available"}
+    return {k: v for k, v in fn().items() if "bytes" in k}
+
+
+def phase_store(torch, np, gfm, circ, plan_mod, store_mib: int) -> dict:
+    """The coded object store at [16, 8] over GF(257) on 20 nodes: put,
+    get, degraded get, coalesced and multi-loss repair, verify, a repeat
+    put, conversion to product-matrix and the store known-answer check.
+    Kernel counts set to 0 just before and read just after."""
+    from repro_torch.codes import CodeClass
+    from repro_torch.core.circulant import CodeSpec
+    from repro_torch.store import CodedObjectStore, RepairScheduler
+    spec = CodeSpec.make(K, P)
+    obj_bytes = (store_mib << 20) // STORE_OBJECTS
+    rng = np.random.default_rng(0)
+    objs = {f"obj{i:02d}": rng.integers(0, 256, size=obj_bytes,
+                                        dtype=np.uint8).tobytes()
+            for i in range(STORE_OBJECTS)}
+    payload = sum(len(v) for v in objs.values())
+    arr = rng.standard_normal((1000, 37)).astype(np.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn((300, 7), generator=gen, device="cuda"),
+            "b": torch.randn((129,), generator=gen, device="cuda").to(
+                torch.bfloat16)}
+    store = CodedObjectStore(spec, n_nodes=STORE_NODES,
+                             stripe_symbols=STORE_STRIPE)
+    require((store.put_tile_stripes, store.repair_tile_tasks)
+            == (STORE_PUT_TILE, STORE_REPAIR_TILE), "store window defaults")
+    require(store.code.backend_name == "cuda",
+            f"store backend {store.code.backend_name}")
+    sched = RepairScheduler(store)
+    store.subscribe(sched.on_event)
+    pool = store.code.planner.staging
+    steps: dict = {}
+    profiles: dict = {}
+
+    def check_all(what):
+        for key, v in objs.items():
+            require(store.get(key) == v, f"{what}: {key} byte-identical")
+        require(np.array_equal(store.get("array"), arr),
+                f"{what}: array object")
+        got = store.get_pytree("tree")
+        require(list(got) == ["b", "w"] and all(
+            got[k].device.type == "cuda" and got[k].dtype == tree[k].dtype
+            and torch.equal(got[k], tree[k]) for k in tree),
+            f"{what}: tree object on the card, bit-exact")
+
+    def step(name, fn, nbytes=payload):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = {"gf_matmul": gfm.launches, "circulant_encode": circ.launches}
+        st0 = plan_mod.plan_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st1 = plan_mod.plan_stats()
+        row = {"wall_ms": dt * 1e3, "MBps": nbytes / dt / 1e6,
+               "launches": {"gf_matmul": gfm.launches - n0["gf_matmul"],
+                            "circulant_encode":
+                                circ.launches - n0["circulant_encode"]},
+               "plan": {"hits": st1.hits - st0.hits,
+                        "misses": st1.misses - st0.misses,
+                        "compiles": st1.compiles - st0.compiles},
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "staging": pool.stats()._asdict(),
+               "host_pinned": host_pinned(torch)}
+        steps[name] = row
+        return out, row
+
+    def profiled(name, fn):
+        """``fn`` once more under torch.profiler (CPU + CUDA)."""
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        profiles[name] = busy_share(torch, prof, wall)
+
+    def get_all():
+        res = {k: store.get_ext(k) for k in objs}
+        for k, v in objs.items():
+            require(res[k].obj == v, f"{k} byte-identical")
+        return {"degraded_stripes": sum(r.degraded_stripes
+                                        for r in res.values()),
+                "bytes_read": sum(r.bytes_read for r in res.values())}
+
+    def put_all():
+        for k, v in objs.items():
+            store.put(k, v)
+
+    def drain_row(rep, row):
+        """A drain's report on its step row; its rate is repair symbols
+        moved (bytes, over GF(257) systematic storage) per second."""
+        row.update({"repaired_stripes": rep.repaired_stripes,
+                    "repaired_shares": rep.repaired_shares,
+                    "batch_calls": rep.batch_calls,
+                    "decode_calls": rep.decode_calls,
+                    "symbols_moved": rep.symbols_moved,
+                    "ratio_vs_rs": rep.ratio_vs_rs,
+                    "MBps": rep.symbols_moved / row["wall_ms"] * 1e3 / 1e6})
+
+    gfm.launches = 0
+    circ.launches = 0
+    # 1. put: one circulant_encode launch per put window
+    _, row = step("put", lambda: (put_all(), store.put("array", arr),
+                                  store.put_pytree("tree", tree)))
+    windows = sum(-(-store.stat(k).n_stripes // store.put_tile_stripes)
+                  for k in store.keys())
+    require(row["launches"] == {"gf_matmul": 0, "circulant_encode": windows},
+            f"put is one encode launch per window ({windows}): "
+            f"{row['launches']}")
+    row["windows"] = windows
+    row["stripes"] = sum(store.stat(k).n_stripes for k in store.keys())
+    # 2. healthy get: systematic, no kernel at all
+    res, row = step("get", get_all)
+    row.update(res)
+    require(res["degraded_stripes"] == 0
+            and row["launches"] == {"gf_matmul": 0, "circulant_encode": 0},
+            f"healthy get launches nothing: {row['launches']}")
+    check_all("healthy get")
+    # 3. one node lost: degraded get, then the coalesced repair
+    store.fail_node(3)
+    res, row = step("degraded_get_node3", get_all)
+    row.update(res)
+    require(res["degraded_stripes"] > 0, "node 3 degrades some stripes")
+    store.replace_node(3)
+    rep, row = step("drain_node3", sched.drain_all, nbytes=0)
+    drain_row(rep, row)
+    require(rep.decode_calls == 0 and rep.batch_calls >=
+            -(-rep.repaired_stripes // store.repair_tile_tasks)
+            and row["launches"] == {"gf_matmul": rep.batch_calls,
+                                    "circulant_encode": 0},
+            f"node-3 drain is one launch per repair window: {row}")
+    check_all("after node 3")
+    # 4. rack 0 lost (10 of 20 nodes): multi-loss decodes
+    rack0 = list(store.layout.nodes_in(0))
+
+    def fail_rack():
+        for v in rack0:
+            store.fail_node(v)
+
+    def replace_rack():
+        for v in rack0:
+            store.replace_node(v)
+
+    fail_rack()
+    res, row = step("degraded_get_rack0", get_all)
+    row.update(res)
+    replace_rack()
+    rep, row = step("drain_rack0", sched.drain_all, nbytes=0)
+    drain_row(rep, row)
+    require(rep.decode_calls > 0 and row["launches"]["gf_matmul"] ==
+            rep.decode_calls + rep.batch_calls,
+            f"rack-0 drain: one launch per multi-loss decode: {row}")
+    check_all("after rack 0")
+    # 5. ground truth
+    ok, row = step("verify", lambda: (store.verify(), store.audit()))
+    require(ok[0] and ok[1].clean, "verify() and a clean audit")
+    row["shares_checked"] = ok[1].shares_checked
+    # 6. put again at equal size: nothing new to plan
+    _, row = step("put_again", put_all)
+    require(row["plan"]["compiles"] == 0 and row["plan"]["misses"] == 0,
+            f"repeat put compiles nothing new: {row['plan']}")
+    # 7. convert one object to product-matrix, lose a node, drain
+    pm = CodeClass(*PM_CLASS)
+    rec, row = step("convert_pm", lambda: store.convert("obj00", pm),
+                    nbytes=obj_bytes)
+    row.update({"target_stripes": rec.target_stripes,
+                "bytes_read": rec.bytes_read})
+    require(store.class_of("obj00") == pm and store.get("obj00") ==
+            objs["obj00"], "converted object reads back")
+    store.fail_node(7)
+    store.replace_node(7)
+    n_pm = sum(1 for t in range(store.stat("obj00").n_stripes)
+               if 7 in store.placement_of("obj00", t))
+
+    def pm_calls():
+        st = plan_mod.plan_stats_by_family().get(pm.key())
+        return 0 if st is None else st.hits + st.misses
+
+    c0 = pm_calls()
+    rep, row = step("drain_pm_node7", sched.drain_all, nbytes=0)
+    drain_row(rep, row)
+    # a product-matrix window is two planned launches: every helper send
+    # of the window at once, then the newcomer products
+    pm_windows, odd = divmod(pm_calls() - c0, 2)
+    row.update({"pm_stripes": n_pm, "pm_windows": pm_windows})
+    require(n_pm > 0 and not odd and rep.decode_calls == 0
+            and pm_windows >= -(-n_pm // store.repair_tile_tasks)
+            and row["launches"] == {"gf_matmul": rep.batch_calls + pm_windows,
+                                    "circulant_encode": 0},
+            f"node-7 drain: one launch per repair window and one more per "
+            f"product-matrix window: {row}")
+    check_all("after the product-matrix repair")
+    launches = {"gf_matmul": gfm.launches, "circulant_encode": circ.launches}
+    require(all(v > 0 for v in launches.values()),
+            f"both kernels ran on the store path: {launches}")
+    # profiled repeats of put, the rack-0 degraded get and its drain
+    profiled("put", put_all)
+    fail_rack()
+    profiled("degraded_get_rack0", get_all)
+    replace_rack()
+    profiled("drain_rack0", sched.drain_all)
+    check_all("after the profiled repeats")
+    # 8. the store known answer, on the card
+    digest, _ = step("known_answer", lambda: store_rehearsal(
+        CodeSpec, CodedObjectStore, RepairScheduler, CodeClass), nbytes=0)
+    require(digest == KA_STORE_SHA256,
+            f"store known-answer digest {digest} vs the JAX reference")
+    store.close()
+    return {"launches": launches, "steps": steps, "profiles": profiles,
+            "payload_bytes": payload, "objects": len(objs) + 2,
+            "in_place_stages": store.code.planner.staged_in_place,
+            "known_answer_sha256": digest}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--payload-mib", type=int, default=1024,
                     help="main-path payload; only the payload is ever cut, "
                          "never k or p (default 1024 = 1 GiB)")
+    ap.add_argument("--store-mib", type=int, default=1024,
+                    help="store-phase payload over 16 objects; only the "
+                         "payload is ever cut (default 1024 = 1 GiB)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -598,7 +995,8 @@ def main() -> int:
               "full_payload_mib": 1024})
 
     t0 = time.perf_counter()
-    kern = phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main)
+    kern = phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main,
+                         (args.store_mib << 20) // STORE_OBJECTS)
     emit({"phase": "kernels", "ok": True, "cases": kern["cases"],
           "max_abs_diff_vs_plain": kern["diffs"],
           "fold_mismatches": kern["fold_mismatches"],
@@ -622,6 +1020,16 @@ def main() -> int:
     emit({"phase": "times", "card": smi, "rows": times["rows"],
           "copies": times["copies"], "seconds": time.perf_counter() - t0})
 
+    if args.store_mib != 1024:
+        emit({"phase": "cut", "store_mib": args.store_mib,
+              "full_store_mib": 1024})
+    t0 = time.perf_counter()
+    store_res = phase_store(torch, np, gfm, circ, plan_mod, args.store_mib)
+    emit({"phase": "store", "ok": True, "card": smi,
+          "code": f"[{n},{K}] GF({P})", "nodes": STORE_NODES,
+          "stripe_symbols": STORE_STRIPE, **store_res,
+          "seconds": time.perf_counter() - t0})
+
     source = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                             "src/repro/kernels/gf_matmul.py:96", "decode"),
               "circulant_encode": ("src/repro_torch/csrc/circulant_encode.cu",
@@ -634,7 +1042,10 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": main_res["launches"][kname],
+            "launches": main_res["launches"][kname]
+            + store_res["launches"][kname],
+            "launches_by_path": {"main": main_res["launches"][kname],
+                                 "store": store_res["launches"][kname]},
             "max_abs_err": kern["diffs"][kname],
             "max_abs_diff_vs_plain": kern["diffs"][kname],
             "ms": row["ms"], "ms_back_to_back": row["ms_back_to_back"],

@@ -14,18 +14,23 @@ keeps the reference's contract all the same:
   kernel configuration it names), so :func:`plan_stats` still proves the
   steady-state guarantee of zero new compiles after warm-up;
 * asynchronous results: a :class:`PlanResult` holds the device tensor,
-  and ``host()`` synchronises, copies to the host and returns exactly
-  the reference's numpy array.
+  and ``host()`` waits for that op alone — an event recorded right after
+  it — and copies the result to the host on a side stream, so a
+  pipeline's window t lands while window t+1's kernel is still queued
+  behind it; it returns exactly the reference's numpy array, in pageable
+  memory as the reference's is.
 
 Host numpy operands reach a CUDA device through the planner's pinned
 :class:`~repro_torch.exec.staging.StagingPool`: staged, copied with a
 non-blocking DMA, and released once the copy's event has completed (at
-the latest in ``host()``).  Tensor operands already on the device are
+the latest in ``host()``).  An operand that already IS a buffer of that
+pool (caller-staged: the object store writes its windows straight into
+``planner.staging`` buffers sized by :meth:`PlanCache.stream_pad`) is
+DMA'd as it lies, with no second copy; its release stays with the
+caller, after ``host()``.  Tensor operands already on the device are
 used in place.
 
-``matmul_batch`` (per-element matrices, for the product-matrix family)
-and mesh-sharded plans are not ported yet: ``mesh`` accepts only None or
-1.
+Mesh-sharded plans are not ported yet: ``mesh`` accepts only None or 1.
 """
 from __future__ import annotations
 
@@ -136,24 +141,29 @@ class PlanResult:
     stream extent (and batch, when the op bucketed a batch axis).
 
     Holding a PlanResult does not wait for the device.  :meth:`host`
-    waits, copies to the host and trims to the true extents.
+    waits for this op only, copies to the host and trims to the true
+    extents.
     """
 
-    __slots__ = ("raw", "symbols", "batch", "_release")
+    __slots__ = ("raw", "symbols", "batch", "_release", "_done")
 
     def __init__(self, raw, symbols: int, batch: Optional[int] = None,
-                 release: Optional[Callable] = None):
+                 release: Optional[Callable] = None, done=None):
         self.raw = raw
         self.symbols = int(symbols)
         self.batch = None if batch is None else int(batch)
         self._release = release
+        self._done = done           # CUDA event recorded right after the op
 
     def host(self) -> np.ndarray:
         """Block and return the exact result as numpy.  Also the release
         point of any staging buffer the op's host-to-device copy read."""
         raw = self.raw
-        out = raw.cpu().numpy() if isinstance(raw, torch.Tensor) \
-            else np.asarray(raw)
+        if isinstance(raw, torch.Tensor):
+            out = _to_host(raw, self._done) if raw.is_cuda \
+                else raw.numpy()
+        else:
+            out = np.asarray(raw)
         if self._release is not None:
             rel, self._release = self._release, None
             rel()
@@ -166,6 +176,32 @@ class PlanResult:
     def __array__(self, dtype=None, copy=None):
         out = self.host()
         return out if dtype is None else out.astype(dtype)
+
+
+_SIDE: dict = {}                    # device index -> device-to-host stream
+
+
+def _to_host(raw: torch.Tensor, done) -> np.ndarray:
+    """``raw`` copied into a fresh pageable numpy array on the device's
+    side stream, after ``done`` (the op's own event; None records one now
+    on the current stream).  Waits for that copy alone: work queued on
+    the current stream after the op does not delay it.  Pageable, as the
+    reference's results are: callers keep views of a result as stored
+    shares, and page-locked memory would stay locked for their lifetime."""
+    dev = raw.device
+    if done is None:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+    with _LOCK:
+        side = _SIDE.get(dev.index)
+        if side is None:
+            side = _SIDE[dev.index] = torch.cuda.Stream(dev)
+    out = torch.empty(raw.shape, dtype=raw.dtype)
+    with torch.cuda.stream(side):
+        side.wait_event(done)
+        raw.record_stream(side)     # the allocator may not reuse it early
+        out.copy_(raw)              # blocks on the side stream only
+    return out.numpy()
 
 
 class PlanCache:
@@ -197,6 +233,8 @@ class PlanCache:
         self.staging = StagingPool(pin=self.device.type == "cuda")
         self._plans: set[tuple] = set()
         self._lock = threading.Lock()
+        # operands DMA'd straight out of caller-staged pool buffers
+        self.staged_in_place = 0
         self.hits = 0
         self.misses = 0
         self.compiles = 0
@@ -234,13 +272,30 @@ class PlanCache:
                     row[2] += 1
         return out
 
+    def stream_pad(self, s: int) -> tuple[int, int]:
+        """(plan-key bucket, staging extent) for a true stream extent s.
+
+        The reference pads a caller's staging buffer up to the bucket; the
+        kernels here mask the ragged edge, so the buffer is exactly ``s``
+        wide and no zero tail is ever computed."""
+        return self.bucket(s), int(s)
+
     def _stage(self, x, bufs: list) -> torch.Tensor:
         """An int32 tensor of ``x`` on the planner's device.  Numpy bound
         for the card goes through a pinned pool buffer (appended to
-        ``bufs``) and a non-blocking copy."""
+        ``bufs``) and a non-blocking copy — unless it already is one of
+        this pool's buffers, which is copied as it lies and stays the
+        caller's to release."""
         if isinstance(x, torch.Tensor) or self.device.type != "cuda":
             return as_int32(x, self.p, self.device)
         arr = np.asarray(x)
+        if arr.dtype == np.int32 and arr.flags.c_contiguous \
+                and self.staging.holds(arr):
+            self.staged_in_place += 1
+            t0 = perf_counter()
+            out = torch.from_numpy(arr).to(self.device, non_blocking=True)
+            record_stage("h2d", perf_counter() - t0)
+            return out
         if arr.dtype != np.int32 and arr.dtype.itemsize > 2:
             arr = np.remainder(arr.astype(np.int64), self.p)
         t0 = perf_counter()
@@ -253,12 +308,15 @@ class PlanCache:
 
     def _result(self, raw: torch.Tensor, s: int, bufs: list,
                 batch: Optional[int] = None) -> PlanResult:
-        """Wrap ``raw``; staged buffers are released once the copies that
-        read them are done (an event recorded after them), or at host()."""
-        if not bufs:
+        """Wrap ``raw`` with an event recorded right after the op (on the
+        card); staged buffers are released once that event has completed,
+        at the latest in host()."""
+        if not raw.is_cuda:
             return PlanResult(raw, s, batch)
         ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
+        ev.record(torch.cuda.current_stream(raw.device))
+        if not bufs:
+            return PlanResult(raw, s, batch, done=ev)
         pool = self.staging
 
         def rel():
@@ -266,7 +324,7 @@ class PlanCache:
             for b in bufs:
                 pool.release(b)
 
-        return PlanResult(raw, s, batch, release=rel)
+        return PlanResult(raw, s, batch, release=rel, done=ev)
 
     @staticmethod
     def _tagged(key: tuple, tag: Optional[str]) -> tuple:
@@ -358,6 +416,33 @@ class PlanCache:
                                 batch=f)
         key = ("regen_batch", self.batch_bucket(f), k, self.bucket(s))
         raw = self._run(key, lambda: fn(rmat, r_prevs, next_data))
+        return self._result(raw, s, bufs, batch=f)
+
+    def matmul_batch(self, mats, blocks, *,
+                     tag: Optional[str] = None) -> PlanResult:
+        """Per-element batched (q, d) @ (d, S) mod p — the coalesced
+        regeneration for families without a node-invariant repair matrix
+        (product-matrix MSR): one launch with one matrix per element.
+
+        mats: (F, q, d); blocks: (F, d, S).  Both the batch and the stream
+        axis are bucketed in the plan key; ``host()`` returns the exact
+        (F, q, S) stack."""
+        ms, bs = np.shape(mats), np.shape(blocks)
+        if len(ms) != 3 or len(bs) != 3 or ms[0] != bs[0] or ms[2] != bs[1]:
+            raise ValueError(f"matmul_batch needs (F, q, d) mats and "
+                             f"(F, d, S) blocks, got {tuple(ms)} / "
+                             f"{tuple(bs)}")
+        bufs: list = []
+        mats = as_int32(mats, self.p, self.device)
+        blocks = self._stage(blocks, bufs)
+        f, s = bs[0], bs[-1]
+        if not _ENABLED:
+            return self._result(self.backend.matmul(mats, blocks, self.p),
+                                s, bufs, batch=f)
+        key = self._tagged(("matmul_batch", tuple(mats.shape[1:]),
+                            self.batch_bucket(f), self.bucket(s)), tag)
+        raw = self._run(key, lambda: self.backend.matmul(mats, blocks,
+                                                         self.p), tag)
         return self._result(raw, s, bufs, batch=f)
 
     def _regen_fn(self):

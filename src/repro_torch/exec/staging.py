@@ -159,6 +159,14 @@ class StagingPool:
             arr = arr.base
         return arr
 
+    def holds(self, arr) -> bool:
+        """True when ``arr`` is a view of a buffer this pool handed out and
+        that is not yet released (a caller-staged operand)."""
+        if not isinstance(arr, np.ndarray):
+            return False
+        with self._lock:
+            return id(self._base_of(arr)) in self._in_use
+
     def release(self, arr) -> None:
         """Return ``arr``'s backing buffer to the pool.  Only call once the
         copy that read it has completed — the aliasing rule."""
