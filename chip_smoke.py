@@ -4,9 +4,10 @@
 Run from the root of a checkout:
 
     python3 chip_smoke.py [--payload-mib 1024] [--store-mib 1024]
+                          [--ckpt-mib 512] [--serve-mib 256]
 
 It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
-``build/kernels/`` and runs six phases, each printing one JSON line:
+``build/kernels/`` and runs ten phases, each printing one JSON line:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    both kernels, one nvcc per source, started together;
@@ -14,8 +15,9 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             exact equality (tolerance 0: GF arithmetic is exact), at the
             listed shapes, over gf_matmul's grid of m, k, stream lengths
             (aligned, unaligned, s < 4), 1-4 row sources, batching, p and
-            unreduced or negative inputs, and at the main path's and the
-            store path's shapes (store_matmul_shapes);
+            unreduced or negative inputs, and at the main path's, the
+            store path's (store_matmul_shapes) and the checkpoint, serve
+            and cluster paths' shapes (durability_shapes);
             plus the exhaustive check of the kernel's Barrett fold over
             every uint32 value at p in {5, 257, 46337};
 4. main     the port's main path at the repo's production width, [16, 8]
@@ -49,10 +51,38 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             page-locked host bytes; put, the
             rack-0 degraded get and drain run once more under
             torch.profiler for device time by name and the device-busy
-            share.  ``--store-mib N`` cuts only this payload.
+            share.  ``--store-mib N`` cuts only this payload;
+7. checkpoint
+            the MSR checkpointer at [16, 8] on a 512 MiB training state of
+            card tensors in a temporary directory: save (one
+            circulant_encode launch per 2^20-symbol tile), write-behind
+            save under an in-place update, systematic restore (no launch,
+            equal to the state before the update), restore with node 5
+            lost (regenerate) and with nodes 2, 9, 14 lost (decode+repair;
+            one gf_matmul launch per tile each, pairs rewritten
+            bit-exactly), repair_node, scrub clean and after a corrupted
+            byte, a store-backed save/restore with a failed node, and the
+            checkpoint known-answer digest against the JAX reference's
+            files; wall ms, MB/s, launches, the copy of each result tile
+            into the pooled buffer (``land_ms``) and peak device memory
+            per step, device-busy share of a profiled save and
+            reconstruct;
+8. serve    the read front end before a fresh [16, 8] store on 20 nodes
+            holding 256 MiB in 16 objects, node 3 lost, node 7 slow (hedges
+            fire), one rotten share (CRC catch, quarantine): 64 reads over
+            4 priorities into a queue of 48 (16 shed as Overloaded), one
+            gf_matmul launch per failure pattern, zero corrupt payloads,
+            then tick() drains the repairs and the quarantined node is
+            scrubbed back in; p50/p99 latency, MB/s, wall ms;
+9. cluster  the standard scenarios on the cluster simulator at [16, 8]
+            with 2^22 symbols per block (256 MiB of int32 data), every one
+            bit-exact, and a CodedReadServer tree round trip with 3 nodes
+            down;
+10. drills  every crash-consistency drill of the port on the card, at the
+            reference's own sizes: passed, bit-exact, zero orphans.
 
-Then a ``kernels`` JSON line (launches on the main and the store path), the ``nvidia-smi`` name/power-limit line,
-and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
+Then a ``kernels`` JSON line (launches by path), the ``nvidia-smi``
+name/power-limit line, and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the script exits non-zero.  Without CUDA, or run outside a checkout, it
 exits non-zero before printing any result.  The script imports nothing
 of JAX or of the JAX package.
@@ -83,6 +113,10 @@ KA_DECODE_REPAIR_SHA256 = \
 # CPU): shares, CRC ledgers, drain reports and convert receipt.
 KA_STORE_SHA256 = \
     "8a19c2bfc2a920b5463f3426b5e046a8e36129763c242aef7a29481202246d25"
+# Digest of the step directory the JAX reference's MSRCheckpointer writes
+# for ckpt_known_state() (ckpt_rehearsal(), repro.checkpoint on CPU).
+KA_CKPT_SHA256 = \
+    "8ba8e80582dbddd0d56e8489deeec4c9b79b1053569be4930300592486860480"
 
 # Published peak device-memory rates (NVIDIA data sheets), by card name.
 MEM_PEAK = (("H100 PCIe", 2.0e12, "H100 PCIe data sheet 2.0 TB/s"),
@@ -174,6 +208,15 @@ def host_us(fn, reps: int) -> float:
     return (t1 - t0) / reps * 1e6
 
 
+def counted(gfm, circ):
+    """Launches of each kernel so far, to diff around a step."""
+    return {"gf_matmul": gfm.launches, "circulant_encode": circ.launches}
+
+
+def launched(gfm, circ, n0: dict) -> dict:
+    return {k: v - n0[k] for k, v in counted(gfm, circ).items()}
+
+
 def bound(nbytes: float, ops: float, mem_rate: float) -> tuple[float, str]:
     t_bytes = nbytes / mem_rate * 1e3
     t_ops = ops / OPS_PEAK[0] * 1e3
@@ -213,7 +256,7 @@ def gf_matmul_grid(torch, gfm, ref, rnd, cmp, p: int) -> None:
 
 
 def phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main: int,
-                  store_obj_bytes: int) -> dict:
+                  store_obj_bytes: int, ckpt_mib: int) -> dict:
     """Each kernel vs its plain version, exact; returns max |diff| per
     kernel.  These launches are outside the main path's count."""
     dev = "cuda"
@@ -292,6 +335,19 @@ def phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main: int,
         cmp("gf_matmul", gfm(a, srcs, P), ref.gf_matmul_ref(a, srcs, P),
             f"store {what} a{a_shape} sources {src_shapes}")
         del a, srcs
+    # the checkpoint, serve and cluster paths' own shapes
+    encodes, matmuls = durability_shapes(ckpt_mib)
+    for what, s in encodes:
+        d = rnd((n, s), P)
+        cmp("circulant_encode", circ(d, spec.c, P),
+            ref.circulant_encode_ref(d, spec.c, P), f"{what} ({n},{s})")
+        del d
+    for what, a_shape, src_shapes in matmuls:
+        a = rnd(a_shape, P)
+        srcs = tuple(rnd(x, P) for x in src_shapes)
+        cmp("gf_matmul", gfm(a, srcs, P), ref.gf_matmul_ref(a, srcs, P),
+            f"{what} a{a_shape} sources {src_shapes}")
+        del a, srcs
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return {"diffs": diffs, "cases": cases, "fold_mismatches": folds}
@@ -306,6 +362,36 @@ def main_matmul_shapes(n: int, s: int) -> list:
             ((n + 2, n), ((K, s), (K, s))),
             ((2, K + 1), ((1, s), (K, s))),
             ((2, K + 1), ((4, 1, s), (4, K, s)))]
+
+
+def durability_shapes(ckpt_mib: int) -> tuple[list, list]:
+    """circulant_encode's (what, s) and gf_matmul's (what, a, sources)
+    operands on the checkpoint, serve and cluster paths, in the form
+    their callers hand them over: the checkpoint's full and ragged save
+    tiles, its regenerate over (r_prev, next_data), its decode+repair of
+    3 lost nodes and its batched scrub over one staged tile each; the
+    front end's per-pattern decodes of 1..k rows over a pattern's staged
+    downloads (one object's 16 stripes); the simulator's encode, one-row
+    and bulk decodes over (data, redundancy) row sources, regenerate and
+    multi-loss repair at CLUSTER_SYMBOLS, and its batched scrub."""
+    geo = ckpt_geometry(ckpt_mib)
+    n, t, tail, s = 2 * K, geo["tile"], geo["tail"], CLUSTER_SYMBOLS
+    encodes = [("checkpoint save tile", t), ("checkpoint ragged tail", tail),
+               ("cluster encode", s)]
+    matmuls = ([("checkpoint regenerate", (2, K + 1), ((1, x), (K, x)))
+                for x in (t, tail)]
+               + [("checkpoint decode+repair", (n + 3, n), ((n, x),))
+                  for x in (t, tail)]
+               + [("checkpoint scrub", (2, K + 1), ((n, 1, t), (n, K, t)))]
+               + [("front end decode", (m, n), ((n, 16 * STORE_STRIPE),))
+                  for m in range(1, K + 1)]
+               + [("cluster one-row decode", (1, n), ((K, s), (K, s))),
+                  ("cluster bulk decode", (3, n), ((K, s), (K, s))),
+                  ("cluster regenerate", (2, K + 1), ((1, s), (K, s))),
+                  ("cluster scrub", (2, K + 1), ((n, 1, s), (n, K, s)))]
+               + [("cluster multi-loss repair", (n + f, n), ((K, s), (K, s)))
+                  for f in (2, 5, 8)])
+    return encodes, matmuls
 
 
 def store_matmul_shapes(obj_bytes: int) -> list:
@@ -514,8 +600,7 @@ def phase_main(torch, np, msr_mod, plan_mod, gfm, circ, payload_bytes: int,
     require(st1.compiles == st0.compiles and st1.misses == st0.misses
             and st1.hits >= st0.hits + 4,
             f"planned repeat compiles nothing new ({st0} -> {st1})")
-    launches = {"gf_matmul": gfm.launches,
-                "circulant_encode": circ.launches}
+    launches = counted(gfm, circ)
     require(all(v > 0 for v in launches.values()),
             f"both kernels ran on the main path: {launches}")
     del enc, dl, r1, n1
@@ -681,6 +766,70 @@ def store_rehearsal(CodeSpec, Store, Scheduler, CodeClass, **store_kw,
         ",", ":")).encode()).hexdigest()
 
 
+# ---------------------------------------------------------- checkpoint path
+CKPT_TILE = 4099            # known-answer save tile: two tiles, one ragged
+CKPT_COLS = 4096            # columns of the state's weight and moment stacks
+CLUSTER_SYMBOLS = 1 << 22   # symbols per block of the cluster phase
+
+
+def ckpt_geometry(ckpt_mib: int) -> dict:
+    """Shapes of the checkpoint phase's state: rows of its (rows,
+    CKPT_COLS) bf16 weight and two float32 moment stacks (10 bytes per
+    element) plus an int64 step; symbols per block at [16, 8] and the
+    save's stream tiles (2^20 symbols, the last one ragged)."""
+    from repro_torch.checkpoint.msr_checkpoint import SAVE_TILE_SYMBOLS
+    rows = max(1, (ckpt_mib << 20) // 10 // CKPT_COLS)
+    nbytes = rows * CKPT_COLS * 10 + 8
+    s_block = -(-nbytes // (2 * K))
+    tiles = -(-s_block // SAVE_TILE_SYMBOLS)
+    return {"rows": rows, "bytes": nbytes, "s_block": s_block,
+            "tile": SAVE_TILE_SYMBOLS, "tiles": tiles,
+            "tail": s_block - (tiles - 1) * SAVE_TILE_SYMBOLS}
+
+
+def ckpt_known_state(np) -> dict:
+    """The checkpoint known-answer state as numpy: a seeded training-state
+    tree (float32 weights and moments, int32 ids, an int64 step)."""
+    rng = np.random.default_rng(5)
+    return {"params": {"w": rng.standard_normal((96, 129)).astype(np.float32),
+                       "b": rng.integers(-2 ** 31, 2 ** 31 - 1, 77,
+                                         dtype=np.int64).astype(np.int32)},
+            "opt": {"mu": (rng.standard_normal((96, 129)) * 1e-3).astype(
+                        np.float32),
+                    "step": np.asarray(41, np.int64)}}
+
+
+def ckpt_digest(step_dir: Path) -> str:
+    """sha256 over a step directory: every file's name and bytes, an
+    ``.npz`` by its members (its zip container carries the write time)."""
+    import zipfile
+    h = hashlib.sha256()
+    for f in sorted(step_dir.iterdir()):
+        h.update(f.name.encode())
+        if f.suffix == ".npz":
+            with zipfile.ZipFile(f) as z:
+                for m in sorted(z.namelist()):
+                    h.update(m.encode())
+                    h.update(z.read(m))
+        else:
+            h.update(f.read_bytes())
+    return h.hexdigest()
+
+
+def ckpt_rehearsal(Checkpointer, CodeSpec, root: Path, state,
+                   **ckpt_kw) -> str:
+    """The checkpoint known-answer workload, on whichever package's
+    checkpointer it is handed: save ``state`` (ckpt_known_state(), as
+    that package's leaves) at step 3 with [16, 8] over GF(257) and
+    CKPT_TILE-symbol tiles under ``root``; returns ckpt_digest() of the
+    step directory."""
+    ck = Checkpointer(root, CodeSpec.make(K, P), save_tile_symbols=CKPT_TILE,
+                      **ckpt_kw)
+    ck.save(3, state)
+    ck.close()
+    return ckpt_digest(Path(root) / "step_000003")
+
+
 def busy_share(torch, prof, wall_s: float) -> dict:
     """Device time by name and the device-busy share of ``wall_s`` from a
     ``torch.profiler`` run: the device's own events (kernels, copies)
@@ -771,7 +920,7 @@ def phase_store(torch, np, gfm, circ, plan_mod, store_mib: int) -> dict:
     def step(name, fn, nbytes=payload):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        n0 = {"gf_matmul": gfm.launches, "circulant_encode": circ.launches}
+        n0 = counted(gfm, circ)
         st0 = plan_mod.plan_stats()
         t0 = time.perf_counter()
         out = fn()
@@ -779,9 +928,7 @@ def phase_store(torch, np, gfm, circ, plan_mod, store_mib: int) -> dict:
         dt = time.perf_counter() - t0
         st1 = plan_mod.plan_stats()
         row = {"wall_ms": dt * 1e3, "MBps": nbytes / dt / 1e6,
-               "launches": {"gf_matmul": gfm.launches - n0["gf_matmul"],
-                            "circulant_encode":
-                                circ.launches - n0["circulant_encode"]},
+               "launches": launched(gfm, circ, n0),
                "plan": {"hits": st1.hits - st0.hits,
                         "misses": st1.misses - st0.misses,
                         "compiles": st1.compiles - st0.compiles},
@@ -919,7 +1066,7 @@ def phase_store(torch, np, gfm, circ, plan_mod, store_mib: int) -> dict:
             f"node-7 drain: one launch per repair window and one more per "
             f"product-matrix window: {row}")
     check_all("after the product-matrix repair")
-    launches = {"gf_matmul": gfm.launches, "circulant_encode": circ.launches}
+    launches = counted(gfm, circ)
     require(all(v > 0 for v in launches.values()),
             f"both kernels ran on the store path: {launches}")
     # profiled repeats of put, the rack-0 degraded get and its drain
@@ -941,6 +1088,416 @@ def phase_store(torch, np, gfm, circ, plan_mod, store_mib: int) -> dict:
             "known_answer_sha256": digest}
 
 
+def phase_checkpoint(torch, np, gfm, circ, ckpt_mib: int) -> dict:
+    """The MSR checkpointer at [16, 8] over GF(257) on a training-state
+    tree of card tensors (ckpt_mib MiB: a bf16 weight stack, two float32
+    moment stacks and an int64 step from a seeded torch.Generator) in a
+    temporary directory on local disk: save, write-behind save under an
+    in-place update, systematic / regenerate / reconstruct restores,
+    repair_node, scrub clean and after a corrupted byte, a store-backed
+    save/restore with a failed node, profiled repeats and the checkpoint
+    known-answer digest.  Kernel counts set to 0 just before and read
+    just after."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import MSRCheckpointer
+    from repro_torch.core.circulant import CodeSpec
+    from repro_torch.exec import staging
+    from repro_torch.store import CodedObjectStore
+    spec = CodeSpec.make(K, P)
+    n = spec.n
+    geo = ckpt_geometry(ckpt_mib)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def stack(dtype):
+        return torch.randn((geo["rows"], CKPT_COLS), generator=gen,
+                           device="cuda").to(dtype)
+
+    state = {"params": {"w": stack(torch.bfloat16)},
+             "opt": {"mu": stack(torch.float32),
+                     "nu": stack(torch.float32).abs_(),
+                     "step": torch.tensor(1000, dtype=torch.int64,
+                                          device="cuda")}}
+    leaves = [state["params"]["w"], state["opt"]["mu"], state["opt"]["nu"],
+              state["opt"]["step"]]
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    s_block, tiles = geo["s_block"], geo["tiles"]
+    require(nbytes == geo["bytes"], "state bytes as ckpt_geometry says")
+    root = Path(tempfile.mkdtemp(prefix="msr_ckpt_"))
+    steps: dict = {}
+    profiles: dict = {}
+
+    def equal(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(
+            [a["params"]["w"], a["opt"]["mu"], a["opt"]["nu"],
+             a["opt"]["step"]],
+            [b["params"]["w"], b["opt"]["mu"], b["opt"]["nu"],
+             b["opt"]["step"]]))
+
+    def step(name, fn, nbytes=nbytes):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = counted(gfm, circ)
+        land0 = staging.stage_times().get("land", 0.0)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        row = {"wall_ms": dt * 1e3, "MBps": nbytes / dt / 1e6,
+               "launches": launched(gfm, circ, n0),
+               "land_ms": (staging.stage_times().get("land", 0.0) - land0)
+               * 1e3,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        steps[name] = row
+        return out, row
+
+    def profiled(name, fn):
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        profiles[name] = busy_share(torch, prof, wall)
+
+    def unlink(step_no, nodes):
+        for f in nodes:
+            for path in ck._node_files(step_no, f):
+                path.unlink()
+
+    gfm.launches = 0
+    circ.launches = 0
+    try:
+        ck = MSRCheckpointer(root, spec)
+        require(ck.code.backend_name == "cuda" and ck.device.type == "cuda",
+                f"checkpointer on the card ({ck.code.backend_name})")
+        # 1. save: one circulant_encode launch per stream tile
+        _, row = step("save", lambda: ck.save(1, state))
+        require(row["launches"] == {"gf_matmul": 0,
+                                    "circulant_encode": tiles},
+                f"save is one encode launch per tile ({tiles}): {row}")
+        digest1 = ckpt_digest(ck._step_dir(1))
+        # 2. write-behind: every leaf updated in place on the card at once
+        before = {"params": {"w": state["params"]["w"].clone()},
+                  "opt": {k: v.clone() for k, v in state["opt"].items()}}
+
+        def save_async():
+            t0 = time.perf_counter()
+            ck.save_async(2, state)
+            returned = time.perf_counter() - t0
+            state["params"]["w"].add_(1)
+            state["opt"]["mu"].mul_(0.9).add_(0.1)
+            state["opt"]["nu"].mul_(0.99)
+            state["opt"]["step"].add_(1)
+            ck.barrier()
+            return returned
+
+        returned, row = step("save_async", save_async)
+        row["returned_ms"] = returned * 1e3
+        require(row["launches"]["circulant_encode"] == tiles,
+                f"write-behind save is one encode launch per tile: {row}")
+        # 3. systematic restore: the state before the update, bit for bit
+        (got, rep), row = step("restore_systematic",
+                               lambda: ck.restore(state, 2))
+        require(rep.path == "systematic" and equal(got, before)
+                and got["params"]["w"].device.type == "cuda",
+                "write-behind restore equals the pre-update state")
+        require(row["launches"] == {"gf_matmul": 0, "circulant_encode": 0},
+                f"systematic restore launches nothing: {row}")
+        row["bytes_read"] = rep.bytes_read
+        del got
+        digest2 = ckpt_digest(ck._step_dir(2))
+        # 4. node 5 lost: regenerate, one gf_matmul launch per tile
+        unlink(2, [5])
+        (got, rep), row = step("restore_regenerate_node5",
+                               lambda: ck.restore(before, 2,
+                                                  failed_nodes=[5]))
+        require(rep.path == "regenerate" and rep.repaired_nodes == (5,)
+                and equal(got, before), "regenerate restore bit-exact")
+        require(row["launches"] == {"gf_matmul": tiles,
+                                    "circulant_encode": 0},
+                f"regenerate is one launch per tile ({tiles}): {row}")
+        require(ckpt_digest(ck._step_dir(2)) == digest2,
+                "node 5's pair rewritten bit-exactly")
+        row["bytes_read"] = rep.bytes_read
+        del got
+        # 5. nodes 2, 9, 14 lost: reconstruct + repair, one launch per tile
+        unlink(2, [2, 9, 14])
+        (got, rep), row = step("restore_reconstruct_2_9_14",
+                               lambda: ck.restore(before, 2,
+                                                  failed_nodes=[2, 9, 14]))
+        require(rep.path == "reconstruct" and rep.repaired_nodes == (2, 9, 14)
+                and equal(got, before), "reconstruct+repair restore bit-exact")
+        require(row["launches"] == {"gf_matmul": tiles,
+                                    "circulant_encode": 0},
+                f"decode+repair is one launch per tile ({tiles}): {row}")
+        require(ckpt_digest(ck._step_dir(2)) == digest2,
+                "the three lost pairs rewritten bit-exactly")
+        row["bytes_read"] = rep.bytes_read
+        del got
+        # 6. the newcomer protocol alone
+        unlink(2, [7])
+        gamma, row = step("repair_node7", lambda: ck.repair_node(2, 7))
+        require(row["launches"]["gf_matmul"] == tiles
+                and ckpt_digest(ck._step_dir(2)) == digest2,
+                f"repair_node: one launch per tile, pair bit-exact: {row}")
+        row["bytes_read"] = gamma
+        # 7. a clean scrub: every pair re-derived, one launch per tile
+        rep, row = step("scrub_clean", lambda: ck.scrub(2),
+                        nbytes=2 * nbytes)
+        require(rep.clean and row["launches"]["gf_matmul"] == tiles,
+                f"clean scrub, one batched launch per tile: {row}")
+        # 8. one corrupted byte in node 11's data block: the scrub flags
+        # that node and exactly the nodes whose regeneration reads it
+        victim = 11
+        a_path = ck._node_files(2, victim)[0]
+        raw = bytearray(a_path.read_bytes())
+        raw[-1] ^= 0xFF
+        a_path.write_bytes(bytes(raw))
+        expect = {victim} | {i for i in range(1, n + 1)
+                             if victim - 1 in ck.code.repair_plan(i)
+                             .data_indices}
+        rep, row = step("scrub_corrupt_node11", lambda: ck.scrub(2),
+                        nbytes=2 * nbytes)
+        require(set(rep.mismatched_nodes) == expect,
+                f"scrub flags node {victim} and the nodes reading its block "
+                f"{sorted(expect)}: {rep.mismatched_nodes}")
+        row["mismatched_nodes"] = list(rep.mismatched_nodes)
+        ck.repair_node(2, victim)
+        require(ck.scrub(2).clean and ckpt_digest(ck._step_dir(2))
+                == digest2, "node 11 repaired, scrub clean again")
+        # profiled repeats: a save and the reconstruct
+        profiled("save", lambda: ck.save(3, before))
+        profiled("restore_reconstruct",
+                 lambda: ck.restore(before, 3, failed_nodes=[2, 9, 14]))
+        ck.close()
+        require(digest1 != digest2, "steps 1 and 2 hold different states")
+        # 9. store-backed: leaf groups as objects, one node failed
+        store = CodedObjectStore(spec, n_nodes=STORE_NODES,
+                                 stripe_symbols=STORE_STRIPE)
+        sck = MSRCheckpointer(None, store=store)
+
+        def store_round():
+            sck.save(1, before)
+            store.fail_node(3)
+            return sck.restore(before, 1)
+
+        (got, rep), row = step("store_backed_node3", store_round)
+        require(rep.path == "store" and equal(got, before),
+                "store-backed restore with node 3 failed bit-exact")
+        require(row["launches"]["circulant_encode"] > 0
+                and row["launches"]["gf_matmul"] > 0,
+                f"store-backed save encodes, degraded restore decodes: {row}")
+        row["bytes_read"] = rep.bytes_read
+        del got
+        store.close()
+        # the known answer, saved from card tensors
+        ka_state = ckpt_known_state(np)
+        ka_tree = {g: {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+                   for g, d in ka_state.items()}
+        digest = ckpt_rehearsal(MSRCheckpointer, CodeSpec, root / "ka",
+                                ka_tree)
+        require(digest == KA_CKPT_SHA256,
+                f"checkpoint known-answer digest {digest} vs the JAX "
+                f"reference")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = counted(gfm, circ)
+    require(all(v > 0 for v in launches.values()),
+            f"both kernels ran on the checkpoint path: {launches}")
+    del state, before
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": steps, "profiles": profiles,
+            "state_bytes": nbytes, "symbols_per_block": s_block,
+            "tile_symbols": geo["tile"], "tiles": tiles,
+            "known_answer_sha256": digest}
+
+
+def phase_serve(torch, np, gfm, circ, serve_mib: int) -> dict:
+    """The read front end before a fresh [16, 8] store on 20 nodes, on
+    the card: serve_mib MiB in 16 objects, node 3 failed and not yet
+    drained, node 7 slowed by a read-latency fault (hedges fire), one
+    stored share rotted (the CRC catch quarantines its node); 64 reads
+    over 4 priorities into a queue of 48 (16 shed), pump, tick until the
+    repairs drain, scrub the quarantined.  Kernel counts set to 0 just
+    before and read just after."""
+    from repro_torch.core.circulant import CodeSpec
+    from repro_torch.io import FaultInjector, fast_retry
+    from repro_torch.serve import Overloaded, ReadFrontEnd
+    from repro_torch.store import CodedObjectStore, RepairScheduler
+    objects, reads, max_queue, slow, rot_node = 16, 64, 48, 7, 12
+    obj_bytes = (serve_mib << 20) // objects
+    rng = np.random.default_rng(1)
+    objs = {f"s{i:02d}": rng.integers(0, 256, size=obj_bytes,
+                                      dtype=np.uint8).tobytes()
+            for i in range(objects)}
+    order = [(f"s{int(rng.integers(0, objects)):02d}", int(rng.integers(0, 4)))
+             for _ in range(reads)]
+    faults = FaultInjector(seed=0)
+    store = CodedObjectStore(CodeSpec.make(K, P), n_nodes=STORE_NODES,
+                             stripe_symbols=STORE_STRIPE, faults=faults,
+                             retry=fast_retry())
+    sched = RepairScheduler(store)
+    store.subscribe(sched.on_event)
+    gfm.launches = 0
+    circ.launches = 0
+    t0 = time.perf_counter()
+    for key, v in objs.items():
+        store.put(key, v)
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    store.fail_node(3)
+    faults.add(op="read", kind="latency", match=f"node:{slow:02d}",
+               latency_s=0.05)
+    # rot one stored share of a key read at the top priority (never shed)
+    rot_key = next(k for k, pri in order if pri == 3)
+    rot_t = next(t for t in range(store.stat(rot_key).n_stripes)
+                 if rot_node in store.placement_of(rot_key, t))
+    store._shares[rot_node - 1][(rot_key, rot_t)][1][0] ^= 0x55
+    fe = ReadFrontEnd(store, scheduler=sched, max_queue=max_queue,
+                      default_deadline_s=60.0, hedge_after_s=0.02,
+                      quarantine_threshold=2.0)
+    try:
+        tks = [fe.submit(key, priority=pri) for key, pri in order]
+        n0 = counted(gfm, circ)
+        t0 = time.perf_counter()
+        fe.pump()
+        torch.cuda.synchronize()
+        pump_s = time.perf_counter() - t0
+        pump_launches = launched(gfm, circ, n0)
+        served = [tk for tk in tks if tk.error is None]
+        shed = [tk for tk in tks if tk.error is not None]
+        corrupt = sum(tk.obj != objs[tk.key] for tk in served)
+        require(corrupt == 0, f"{corrupt} corrupt payloads served")
+        require(all(isinstance(tk.error, Overloaded) for tk in shed)
+                and len(shed) == reads - max_queue and len(served) ==
+                max_queue, f"shed {len(shed)} of {reads}, all Overloaded")
+        m = fe.metrics.summary()
+        require(pump_launches == {"gf_matmul": m["decode_dispatches"],
+                                  "circulant_encode": 0}
+                and m["decode_dispatches"] > 0,
+                f"one gf_matmul launch per failure pattern: {pump_launches}"
+                f" vs {m['decode_dispatches']}")
+        require(m["hedged_fetches"] > 0 and m["crc_rejected"] >= 1
+                and rot_node in fe.quarantined_nodes(),
+                f"hedges fired and the rotten node is quarantined: {m}")
+        faults.clear()                       # the slow node recovers
+        n0 = counted(gfm, circ)
+        t0 = time.perf_counter()
+        ticks = 0
+        while sched.pending():
+            fe.tick()
+            ticks += 1
+            require(ticks < 1000, "repair drain stalls")
+        scrubs = fe.scrub_quarantined()
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t0
+        drain_launches = launched(gfm, circ, n0)
+        require(store.verify() and store.total_lost_shares() == 0,
+                "every stripe re-protected")
+        served_bytes = sum(len(tk.obj) for tk in served)
+        lat = m["latency"]
+        events = [e["what"] for e in fe.events]
+    finally:
+        fe.close()
+        store.close()
+    launches = counted(gfm, circ)
+    require(all(v > 0 for v in launches.values()),
+            f"both kernels ran on the serve path: {launches}")
+    return {"launches": launches, "objects": objects, "object_bytes":
+            obj_bytes, "put_ms": put_s * 1e3, "pump_ms": pump_s * 1e3,
+            "served": len(served), "shed": len(shed),
+            "served_MBps": served_bytes / pump_s / 1e6,
+            "p50_ms": lat["p50_s"] * 1e3, "p99_ms": lat["p99_s"] * 1e3,
+            "pump_launches": pump_launches, "summary": m,
+            "drain_ticks": ticks, "drain_ms": drain_s * 1e3,
+            "drain_launches": drain_launches, "scrubs": scrubs,
+            "events": events}
+
+
+def phase_cluster(torch, np, gfm, circ, block_symbols: int) -> dict:
+    """The standard scenarios on a ClusterSimulator at [16, 8] over
+    GF(257) with block_symbols symbols per block (2^22: 256 MiB of int32
+    data), then a CodedReadServer round trip of a card-tensor tree with 3
+    nodes down.  Kernel counts set to 0 just before and read just
+    after."""
+    from repro_torch.cluster import ClusterSimulator, events
+    from repro_torch.core.circulant import CodeSpec
+    from repro_torch.serve.engine import CodedReadServer
+    spec = CodeSpec.make(K, P)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    data = torch.randint(0, P, (spec.n, block_symbols), generator=gen,
+                         dtype=torch.int32, device="cuda")
+    gfm.launches = 0
+    circ.launches = 0
+    reports = []
+    for sc in events.standard_scenarios(spec.n, K):
+        torch.cuda.synchronize()
+        n0 = counted(gfm, circ)
+        t0 = time.perf_counter()
+        sim = ClusterSimulator(spec, data)
+        rep = sim.run(sc)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        require(sim.node_a.device.type == "cuda" and rep.bit_exact,
+                f"scenario {sc.name} bit-exact on the card")
+        reports.append({"report": rep.to_json(), "wall_ms": dt * 1e3,
+                        "launches": launched(gfm, circ, n0)})
+        del sim
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tree = {"w": torch.randn((1 << 20, 16), generator=gen, device="cuda"),
+            "emb": torch.randn((4096, 512), generator=gen,
+                               device="cuda").to(torch.bfloat16),
+            "step": torch.tensor(7, dtype=torch.int64, device="cuda")}
+    n0 = counted(gfm, circ)
+    t0 = time.perf_counter()
+    srv = CodedReadServer.for_pytree(tree, spec)
+    for victim in (2, 9, 14):
+        srv.sim.fail_node(victim)
+    got = srv.read_state()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    require(list(got) == ["emb", "step", "w"] and all(
+        got[k].device.type == "cuda" and got[k].dtype == tree[k].dtype
+        and torch.equal(got[k], tree[k]) for k in tree),
+        "CodedReadServer tree round trip with 3 nodes down")
+    require(srv.metrics.reads_degraded == 3 and srv.sim.repair_now(),
+            "three blocks decoded, then repaired")
+    server = {"wall_ms": dt * 1e3, "launches": launched(gfm, circ, n0),
+              "reads": srv.metrics.summary()["reads"]}
+    del srv, got, data
+    torch.cuda.empty_cache()
+    launches = counted(gfm, circ)
+    require(all(v > 0 for v in launches.values()),
+            f"both kernels ran on the cluster path: {launches}")
+    return {"launches": launches, "block_symbols": block_symbols,
+            "scenarios": reports, "coded_read_server": server}
+
+
+def phase_drills(torch, gfm, circ) -> dict:
+    """Every crash-consistency drill of the port on the card, at the
+    reference's own sizes ([6, 3] over GF(257)).  Kernel counts set to 0
+    just before and read just after."""
+    from repro_torch.cluster import run_drills
+    gfm.launches = 0
+    circ.launches = 0
+    t0 = time.perf_counter()
+    results = run_drills()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for r in results:
+        require(r.passed and r.bit_exact and r.orphans == 0,
+                f"drill {r.name}: {r.detail}")
+    launches = counted(gfm, circ)
+    require(all(v > 0 for v in launches.values()),
+            f"both kernels ran in the drills: {launches}")
+    return {"launches": launches, "seconds": dt,
+            "drills": [r.to_json() for r in results]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--payload-mib", type=int, default=1024,
@@ -949,6 +1506,10 @@ def main() -> int:
     ap.add_argument("--store-mib", type=int, default=1024,
                     help="store-phase payload over 16 objects; only the "
                          "payload is ever cut (default 1024 = 1 GiB)")
+    ap.add_argument("--ckpt-mib", type=int, default=512,
+                    help="checkpoint-phase training state (default 512)")
+    ap.add_argument("--serve-mib", type=int, default=256,
+                    help="serve-phase payload over 16 objects (default 256)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -996,7 +1557,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kern = phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main,
-                         (args.store_mib << 20) // STORE_OBJECTS)
+                         (args.store_mib << 20) // STORE_OBJECTS,
+                         args.ckpt_mib)
     emit({"phase": "kernels", "ok": True, "cases": kern["cases"],
           "max_abs_diff_vs_plain": kern["diffs"],
           "fold_mismatches": kern["fold_mismatches"],
@@ -1030,6 +1592,31 @@ def main() -> int:
           "stripe_symbols": STORE_STRIPE, **store_res,
           "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
+    ckpt_res = phase_checkpoint(torch, np, gfm, circ, args.ckpt_mib)
+    emit({"phase": "checkpoint", "ok": True, "card": smi,
+          "code": f"[{n},{K}] GF({P})", **ckpt_res,
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    serve_res = phase_serve(torch, np, gfm, circ, args.serve_mib)
+    emit({"phase": "serve", "ok": True, "card": smi,
+          "code": f"[{n},{K}] GF({P})", "nodes": STORE_NODES, **serve_res,
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    cluster_res = phase_cluster(torch, np, gfm, circ, CLUSTER_SYMBOLS)
+    emit({"phase": "cluster", "ok": True, "card": smi,
+          "code": f"[{n},{K}] GF({P})", **cluster_res,
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    drill_res = phase_drills(torch, gfm, circ)
+    emit({"phase": "drills", "ok": True, "card": smi, "code": "[6,3] GF(257)",
+          **drill_res, "seconds": time.perf_counter() - t0})
+
+    paths = {"main": main_res, "store": store_res, "checkpoint": ckpt_res,
+             "serve": serve_res, "cluster": cluster_res, "drills": drill_res}
     source = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                             "src/repro/kernels/gf_matmul.py:96", "decode"),
               "circulant_encode": ("src/repro_torch/csrc/circulant_encode.cu",
@@ -1042,10 +1629,9 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": main_res["launches"][kname]
-            + store_res["launches"][kname],
-            "launches_by_path": {"main": main_res["launches"][kname],
-                                 "store": store_res["launches"][kname]},
+            "launches": sum(r["launches"][kname] for r in paths.values()),
+            "launches_by_path": {path: r["launches"][kname]
+                                 for path, r in paths.items()},
             "max_abs_err": kern["diffs"][kname],
             "max_abs_diff_vs_plain": kern["diffs"][kname],
             "ms": row["ms"], "ms_back_to_back": row["ms_back_to_back"],

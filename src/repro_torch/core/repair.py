@@ -243,15 +243,22 @@ class RepairEngine:
 
     def apply(self, mat, blocks) -> torch.Tensor:
         """(mat @ blocks) mod p through the dispatched backend, on the
-        device of ``blocks``."""
+        device of ``blocks``.  ``blocks`` may be a tuple of row sources,
+        read as if concatenated along the contraction axis (a custom
+        matmul gets them concatenated)."""
+        if isinstance(blocks, tuple):
+            dev = self._dev(*blocks, mat)
+            srcs = tuple(as_int32(b, self.p, dev) for b in blocks)
+            return self._mm(as_int32(mat, self.p, dev), srcs if self._fused
+                            else torch.cat(srcs, dim=-2), self.p)
         dev = self._dev(blocks, mat)
         return self._mm(as_int32(mat, self.p, dev),
                         as_int32(blocks, self.p, dev), self.p)
 
     def apply_planned(self, mat, blocks) -> PlanResult:
         """Planned (mat @ blocks) mod p; ``.host()`` on the result blocks
-        and returns exact numpy.  Falls back to :meth:`apply` without a
-        planner."""
+        and returns exact numpy.  ``blocks`` may be a tuple of row
+        sources.  Falls back to :meth:`apply` without a planner."""
         if self._planned():
             return self.planner.matmul(mat, blocks)
         out = self.apply(mat, blocks)

@@ -173,6 +173,21 @@ class PlanResult:
             out = out[: self.batch]
         return out
 
+    def device(self) -> torch.Tensor:
+        """The exact result as a tensor where the op ran, with no copy to
+        the host: for callers whose next step computes on the device too.
+        Also a release point of any staging buffer the op read (once the
+        op's event has completed)."""
+        if self._release is not None:
+            rel, self._release = self._release, None
+            rel()
+        out = self.raw
+        if out.shape[-1] != self.symbols:
+            out = out[..., : self.symbols]
+        if self.batch is not None and out.shape[0] != self.batch:
+            out = out[: self.batch]
+        return out
+
     def __array__(self, dtype=None, copy=None):
         out = self.host()
         return out if dtype is None else out.astype(dtype)
@@ -353,16 +368,26 @@ class PlanCache:
     # ------------------------------------------------------------------ ops
     def matmul(self, mat, blocks, *, tag: Optional[str] = None) -> PlanResult:
         """(mat @ blocks) mod p — the decode-side workhorse.  ``mat``'s
-        shape is part of the plan key, its values are not."""
+        shape is part of the plan key, its values are not.  ``blocks`` may
+        be a tuple of row sources read as if concatenated along the
+        contraction axis (one launch, no concatenated copy); the key is
+        the concatenation's shape."""
         bufs: list = []
         mat = as_int32(mat, self.p, self.device)
-        blocks = self._stage(blocks, bufs)
-        s = blocks.shape[-1]
+        if isinstance(blocks, tuple):
+            blocks = tuple(self._stage(b, bufs) for b in blocks)
+            lead = tuple(blocks[0].shape[:-2]) + (
+                sum(b.shape[-2] for b in blocks),)
+            s = blocks[0].shape[-1]
+        else:
+            blocks = self._stage(blocks, bufs)
+            lead = tuple(blocks.shape[:-1])
+            s = blocks.shape[-1]
         if not _ENABLED:
             return self._result(self.backend.matmul(mat, blocks, self.p), s,
                                 bufs)
-        key = self._tagged(("matmul", tuple(mat.shape),
-                            tuple(blocks.shape[:-1]), self.bucket(s)), tag)
+        key = self._tagged(("matmul", tuple(mat.shape), lead,
+                            self.bucket(s)), tag)
         raw = self._run(key, lambda: self.backend.matmul(mat, blocks, self.p),
                         tag)
         return self._result(raw, s, bufs)

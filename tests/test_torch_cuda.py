@@ -358,3 +358,92 @@ def test_code_families_compute_on_the_card(cuda):
             n0 = gf_matmul.launches
             np.testing.assert_array_equal(code.reconstruct(subset, dl), data)
             assert gf_matmul.launches == n0 + 1
+
+
+# ------------------------------------------- durability and serving layer
+def test_write_behind_snapshot_survives_in_place_update(cuda, tmp_path):
+    """save_async of card tensors, then every leaf updated in place on the
+    card at once, on a side stream too: the saved step is the state
+    before the update, bit for bit."""
+    from repro_torch.checkpoint import MSRCheckpointer
+    ck = MSRCheckpointer(tmp_path, CodeSpec.make(8, P),
+                         save_tile_symbols=1 << 16)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        state = {"w": torch.randn((512, 1031), generator=gen,
+                                  device=cuda).to(torch.bfloat16),
+                 "m": torch.randn((512, 1031), generator=gen, device=cuda),
+                 "step": torch.tensor(3, dtype=torch.int64, device=cuda)}
+        before = {k: v.clone() for k, v in state.items()}
+        ck.save_async(3, state)
+        for v in state.values():
+            v.add_(1)
+    ck.barrier()
+    got, rep = ck.restore(state, 3)
+    assert rep.path == "systematic"
+    assert all(got[k].device.type == "cuda" and torch.equal(got[k], before[k])
+               for k in state)
+    ck.close()
+
+
+@pytest.mark.parametrize("failed", [(5,), (2, 9, 14)])
+def test_checkpoint_restore_is_one_launch_per_tile(cuda, tmp_path, failed):
+    """The regenerate (one node lost) and the decode+repair (three lost)
+    are each one gf_matmul launch per stream tile, the save one
+    circulant_encode launch per tile."""
+    from repro_torch.checkpoint import MSRCheckpointer
+    tile = 1 << 14
+    ck = MSRCheckpointer(tmp_path, CodeSpec.make(8, P),
+                         save_tile_symbols=tile)
+    state = {"w": torch.arange(16 * 3 * tile + 4099, dtype=torch.int32,
+                               device=cuda)}
+    n0 = circulant_encode.launches
+    ck.save(1, state)
+    s_block = -(-state["w"].numel() * 4 // 16)      # symbols per block
+    tiles = -(-s_block // tile)
+    assert s_block % tile and circulant_encode.launches - n0 == tiles
+    n0 = gf_matmul.launches
+    got, rep = ck.restore(state, 1, failed_nodes=failed)
+    assert gf_matmul.launches - n0 == tiles
+    assert rep.repaired_nodes == failed and torch.equal(got["w"], state["w"])
+    assert ck.scrub(1).clean
+
+
+def test_front_end_coalesced_decode_is_one_launch_per_pattern(cuda):
+    from repro_torch.serve import ReadFrontEnd
+    from repro_torch.store import CodedObjectStore
+    store = CodedObjectStore(CodeSpec.make(4, P), n_nodes=12,
+                             stripe_symbols=256)
+    objs = {f"o{i}": bytes(rand((5000 + 999 * i,), 256, i).astype(np.uint8))
+            for i in range(4)}
+    for key, v in objs.items():
+        store.put(key, v)
+    store.fail_node(2)
+    store.fail_node(7)
+    with ReadFrontEnd(store) as fe:
+        n0 = gf_matmul.launches
+        tks = [fe.submit(key) for key in objs for _ in range(2)]
+        fe.pump()
+        assert all(tk.result() == objs[tk.key] for tk in tks)
+        assert fe.metrics.decode_dispatches > 0
+        assert gf_matmul.launches - n0 == fe.metrics.decode_dispatches
+    assert store.code.planner.staging.stats().in_use == 0
+    store.close()
+
+
+def test_simulator_on_card_matches_cpu(cuda):
+    from repro_torch.cluster import events, run_scenario
+    data = rand((16, 4099), P, 9)
+    for sc in events.standard_scenarios(16, 8):
+        n0 = gf_matmul.launches
+        card = run_scenario(CodeSpec.make(8, P), data, sc).to_json()
+        assert gf_matmul.launches > n0
+        assert card == run_scenario(CodeSpec.make(8, P), data, sc,
+                                    device="cpu").to_json()
+
+
+def test_drills_pass_on_card(cuda, tmp_path):
+    from repro_torch.cluster import run_drills
+    for res in run_drills(tmp_path):
+        assert res.passed and res.bit_exact and res.orphans == 0, res
