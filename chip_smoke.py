@@ -7,7 +7,7 @@ Run from the root of a checkout:
                           [--ckpt-mib 512] [--serve-mib 256]
 
 It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
-``build/kernels/`` and runs ten phases, each printing one JSON line:
+``build/kernels/`` and runs eleven phases, each printing one JSON line:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    both kernels, one nvcc per source, started together;
@@ -17,7 +17,8 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             (aligned, unaligned, s < 4), 1-4 row sources, batching, p and
             unreduced or negative inputs, and at the main path's, the
             store path's (store_matmul_shapes) and the checkpoint, serve
-            and cluster paths' shapes (durability_shapes);
+            and cluster paths' shapes (durability_shapes) and the model
+            path's (model_store_shapes, demo_shapes);
             plus the exhaustive check of the kernel's Barrett fold over
             every uint32 value at p in {5, 257, 46337};
 4. main     the port's main path at the repo's production width, [16, 8]
@@ -79,7 +80,21 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             bit-exact, and a CodedReadServer tree round trip with 3 nodes
             down;
 10. drills  every crash-consistency drill of the port on the card, at the
-            reference's own sizes: passed, bit-exact, zero orphans.
+            reference's own sizes: passed, bit-exact, zero orphans;
+11. model   qwen3-4b at full width, depth cut to 2 of 36 layers (a "cut"
+            line says so), its 3.9 GB of float32 parameters drawn on the
+            card from a seed: put into a [16, 8] store on 20 nodes (one
+            circulant_encode launch per window), read by
+            ServingEngine.from_coded_store (no launch, every leaf equal),
+            4 requests of 2048 prompt tokens served greedily for 32 new
+            tokens (the prefill takes the flash path), node 3 lost and
+            reload_params (gf_matmul launches, leaves equal, the same
+            tokens), drain and reload (equal again); the same weights on
+            the CPU plain path against the card's logits and the JAX
+            reference's known answer (KA_MODEL_LOGITS), both within
+            0.125; serve_demo.py's rack kill on the card, bit-exact, and
+            its repair.  Wall ms, prefill ms, decode ms a token, tokens/s,
+            launches, peak device memory, the host's peak resident size.
 
 Then a ``kernels`` JSON line (launches by path), the ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -117,6 +132,35 @@ KA_STORE_SHA256 = \
 # for ckpt_known_state() (ckpt_rehearsal(), repro.checkpoint on CPU).
 KA_CKPT_SHA256 = \
     "8ba8e80582dbddd0d56e8489deeec4c9b79b1053569be4930300592486860480"
+
+# Known answer of the model path: last-position logits (every 16th of the
+# 512) of the JAX reference's Model.prefill (repro.models on CPU) for
+# qwen3-4b .reduced(n_layers=2) on numpy_params(cfg, KA_MODEL_SEED) and
+# the prompt ka_model_prompt().  The card must match within KA_MODEL_ATOL:
+# the logits are bf16 products (8 significant bits, steps of 2^-6 at
+# magnitude 2); XLA on the CPU evaluates chains of bf16 ops in fp32 where
+# torch rounds after each op, so the two sit a few steps apart — four
+# steps at magnitude 4.
+KA_MODEL_ARCH = "qwen3-4b"
+KA_MODEL_OVERRIDES = {"n_layers": 2}
+KA_MODEL_SEED = 0
+KA_MODEL_SLICE = slice(0, None, 16)
+KA_MODEL_ATOL = 0.125
+KA_MODEL_LOGITS = (
+    -0.3984375, -1.1328125, -1.2109375, 0.921875, -0.06103515625,
+    0.298828125, 1.3359375, 0.408203125, -0.212890625, -0.03662109375,
+    -0.08935546875, 0.000514984130859375, 0.046142578125, 0.3125,
+    0.83984375, 1.1640625, -0.41796875, -0.7265625, 0.91015625,
+    0.26171875, 0.38671875, 0.197265625, 0.3828125, -0.83203125,
+    -0.044189453125, 1.6015625, -0.9765625, 0.0654296875, -0.73828125,
+    -0.90625, -0.34375, -1.125)
+
+
+def ka_model_prompt(np, vocab: int):
+    """The known-answer prompt: (1, 16) token ids from default_rng(1)."""
+    return np.random.default_rng(1).integers(0, vocab, (1, 16)).astype(
+        np.int32)
+
 
 # Published peak device-memory rates (NVIDIA data sheets), by card name.
 MEM_PEAK = (("H100 PCIe", 2.0e12, "H100 PCIe data sheet 2.0 TB/s"),
@@ -256,7 +300,8 @@ def gf_matmul_grid(torch, gfm, ref, rnd, cmp, p: int) -> None:
 
 
 def phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main: int,
-                  store_obj_bytes: int, ckpt_mib: int) -> dict:
+                  store_obj_bytes: int, ckpt_mib: int, model_stripes: int,
+                  demo_symbols: int) -> dict:
     """Each kernel vs its plain version, exact; returns max |diff| per
     kernel.  These launches are outside the main path's count."""
     dev = "cuda"
@@ -343,6 +388,25 @@ def phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main: int,
             ref.circulant_encode_ref(d, spec.c, P), f"{what} ({n},{s})")
         del d
     for what, a_shape, src_shapes in matmuls:
+        a = rnd(a_shape, P)
+        srcs = tuple(rnd(x, P) for x in src_shapes)
+        cmp("gf_matmul", gfm(a, srcs, P), ref.gf_matmul_ref(a, srcs, P),
+            f"{what} a{a_shape} sources {src_shapes}")
+        del a, srcs
+    # the model path's own shapes (phase model)
+    model_encodes, model_matmuls = model_store_shapes(model_stripes)
+    for what, s in model_encodes:
+        d = rnd((n, s), P)
+        cmp("circulant_encode", circ(d, spec.c, P),
+            ref.circulant_encode_ref(d, spec.c, P), f"{what} ({n},{s})")
+        del d
+    demo = CodeSpec.make(DEMO_K, P)
+    d = rnd((demo.n, demo_symbols), P)
+    cmp("circulant_encode", circ(d, demo.c, P),
+        ref.circulant_encode_ref(d, demo.c, P),
+        f"demo encode ({demo.n},{demo_symbols})")
+    for what, a_shape, src_shapes in (model_matmuls
+                                      + demo_shapes(demo_symbols, demo.k)):
         a = rnd(a_shape, P)
         srcs = tuple(rnd(x, P) for x in src_shapes)
         cmp("gf_matmul", gfm(a, srcs, P), ref.gf_matmul_ref(a, srcs, P),
@@ -1498,6 +1562,333 @@ def phase_drills(torch, gfm, circ) -> dict:
             "drills": [r.to_json() for r in results]}
 
 
+MODEL_ARCH = "qwen3-4b"     # serve_demo.py's default arch, at full width
+MODEL_LAYERS = 2            # of 36: the depth cut; no width is cut
+MODEL_PARAM_BYTES = 3_919_106_048   # the float32 tree at 2 layers
+MODEL_BATCH, MODEL_PROMPT, MODEL_NEW = 4, 2048, 32
+MODEL_MAX_LEN = MODEL_PROMPT + MODEL_NEW
+# card vs CPU logits: both are torch, rounding after each bf16 op; the
+# card's and the CPU's matmuls sum in different orders, so a bf16 output
+# may land one step apart and the step carries through the layers — four
+# bf16 steps at magnitude 4, as KA_MODEL_ATOL
+MODEL_CPU_ATOL = 0.125
+DEMO_K = 4                  # serve_demo.py's default --k: [8, 4]
+DEMO_N = 2 * DEMO_K
+
+
+def model_config(dataclasses, get_config):
+    return dataclasses.replace(get_config(MODEL_ARCH), n_layers=MODEL_LAYERS)
+
+
+def model_store_shapes(n_stripes: int) -> tuple[list, list]:
+    """circulant_encode's (what, s) and gf_matmul's (what, a, sources) on
+    the model path: the parameter object's put windows (full and the
+    ragged tail) and, with one node lost, a degraded get's decode of one
+    lost row over one failure pattern's staged downloads (about one
+    stripe in STORE_NODES, each pattern a group)."""
+    s, n = STORE_STRIPE, 2 * K
+    tail = n_stripes % STORE_PUT_TILE or STORE_PUT_TILE
+    g = -(-n_stripes // STORE_NODES)
+    return ([("model put window", STORE_PUT_TILE * s),
+             ("model put tail", tail * s)],
+            [("model degraded get", (1, n), ((n, g * s),))])
+
+
+def demo_shapes(s: int, k: int) -> list:
+    """gf_matmul's operands of serve_demo.py's CodedReadServer at [2k, k]
+    with s symbols per block: the degraded read of 1..n-k lost rows over
+    (data, redundancy) row sources and the repair of the n-k lost nodes."""
+    n = 2 * k
+    return ([("demo decode", (m, n), ((k, s), (k, s)))
+             for m in range(1, n - k + 1)]
+            + [("demo multi-loss repair", (n + n - k, n), ((k, s), (k, s)))])
+
+
+def model_param_bytes(torch, cfg) -> int:
+    """Bytes of ``cfg``'s parameter tree, from its shapes (built on the
+    meta device, nothing allocated)."""
+    from repro_torch.core.placement import tree_flatten
+    from repro_torch.models import Model
+    params = Model(cfg).init(torch.Generator(), device="meta")
+    return sum(x.numel() * x.element_size()
+               for x in tree_flatten(params)[0])
+
+
+def phase_model(torch, np, gfm, circ) -> dict:
+    """qwen3-4b at full width (2 of 36 layers) served from its parameters
+    in the coded object store, then card logits against the CPU path and
+    the reference's known answer, then serve_demo.py's rack kill.  Kernel
+    counts set to 0 just before and read just after."""
+    import dataclasses
+    import resource
+    from repro_torch.cluster.events import default_layout
+    from repro_torch.configs import get_config
+    from repro_torch.core import placement
+    from repro_torch.core.circulant import CodeSpec
+    from repro_torch.models import Model, numpy_params, params_from_numpy
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serve.engine import (CodedReadServer, Request,
+                                          ServingEngine)
+    from repro_torch.store import CodedObjectStore, RepairScheduler
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def leaves_equal(a, b) -> bool:
+        la, ta = placement.tree_flatten(a)
+        lb, tb = placement.tree_flatten(b)
+        return ta == tb and all(x.dtype == y.dtype and x.device == y.device
+                                and torch.equal(x, y)
+                                for x, y in zip(la, lb))
+
+    flash_calls = []
+    real_flash = attn_mod.flash_attention
+
+    def counting_flash(*a, **kw):
+        flash_calls.append(list(a[0].shape))
+        return real_flash(*a, **kw)
+
+    cfg = model_config(dataclasses, get_config)
+    model = Model(cfg)
+    times = {"prefill_s": [], "decode_s": []}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            times[key].append(sync_s(t0))
+            return out
+        return run
+
+    model.prefill = timed(model.prefill, "prefill_s")
+    model.decode_step = timed(model.decode_step, "decode_s")
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (MODEL_BATCH, MODEL_PROMPT)
+                           ).astype(np.int32)
+    out: dict = {"config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                            "n_kv_heads": cfg.n_kv_heads,
+                            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                            "vocab_size": cfg.vocab_size},
+                 "batch": MODEL_BATCH, "prompt": MODEL_PROMPT,
+                 "new_tokens": MODEL_NEW, "max_len": MODEL_MAX_LEN}
+    attn_mod.flash_attention = counting_flash
+    store = None
+    gfm.launches = 0
+    circ.launches = 0
+    try:
+        # (a) full width, parameters in the coded store
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        out["init_ms"] = sync_s(t0) * 1e3
+        leaves = placement.tree_flatten(params)[0]
+        nbytes = sum(x.numel() * x.element_size() for x in leaves)
+        require(nbytes == MODEL_PARAM_BYTES and all(
+            x.device.type == "cuda" for x in leaves),
+            f"{nbytes} B of parameters on the card, {MODEL_PARAM_BYTES} "
+            f"expected")
+        out["param_bytes"] = nbytes
+        store = CodedObjectStore(CodeSpec.make(K, P), n_nodes=STORE_NODES,
+                                 stripe_symbols=STORE_STRIPE)
+        sched = RepairScheduler(store)
+        store.subscribe(sched.on_event)
+        steps = {}
+
+        def step(name, fn):
+            n0 = counted(gfm, circ)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = fn()
+            dt = sync_s(t0)
+            steps[name] = {"wall_ms": dt * 1e3,
+                           "MBps": nbytes / dt / 1e6,
+                           "launches": launched(gfm, circ, n0),
+                           "peak_device_bytes":
+                               torch.cuda.max_memory_allocated()}
+            return res
+
+        stat = step("put", lambda: store.put_pytree("params", params))
+        out["stripes"] = stat.n_stripes
+        require(steps["put"]["launches"]["circulant_encode"] > 0
+                and steps["put"]["launches"]["gf_matmul"] == 0,
+                f"the put encodes on the card: {steps['put']}")
+        eng = step("healthy_read", lambda: ServingEngine.from_coded_store(
+            model, store, key="params", batch_size=MODEL_BATCH,
+            max_len=MODEL_MAX_LEN))
+        require(steps["healthy_read"]["launches"] == {
+            "gf_matmul": 0, "circulant_encode": 0}
+            and leaves_equal(eng.params, params),
+            f"healthy read: no launch, every leaf equal: "
+            f"{steps['healthy_read']}")
+
+        def serve(name):
+            reqs = [Request(uid=i, prompt=prompts[i],
+                            max_new_tokens=MODEL_NEW)
+                    for i in range(MODEL_BATCH)]
+            times["prefill_s"].clear()
+            times["decode_s"].clear()
+            n_flash = len(flash_calls)
+            done = step(name, lambda: eng.serve(reqs, prompt_len=MODEL_PROMPT))
+            require(len(flash_calls) - n_flash == cfg.n_layers,
+                    f"{name}: the prefill takes the flash path in every "
+                    f"layer ({len(flash_calls) - n_flash} calls)")
+            row = steps[name]
+            row["prefill_ms"] = times["prefill_s"][0] * 1e3
+            row["decode_ms_per_token"] = (statistics.median(
+                times["decode_s"]) * 1e3)
+            row["tokens_per_s"] = (MODEL_BATCH * MODEL_NEW
+                                   / (row["wall_ms"] / 1e3))
+            del row["MBps"]
+            toks = [r.out_tokens for r in done]
+            require(all(len(t) == MODEL_NEW and min(t) >= 0
+                        and max(t) < cfg.vocab_size for t in toks),
+                    f"{name}: {MODEL_NEW} tokens in range per request")
+            return toks
+
+        healthy = serve("serve_healthy")
+        # profile one short generate: device busy share, time by name
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.generate(prompts, 8)
+            prof_s = sync_s(t0)
+        out["profile_generate_8"] = busy_share(torch, prof, prof_s)
+        store.fail_node(3)
+        step("degraded_read",
+             lambda: eng.reload_params(store, key="params"))
+        require(steps["degraded_read"]["launches"]["gf_matmul"] >= 1
+                and leaves_equal(eng.params, params),
+                f"degraded read: gf_matmul launched, every leaf equal: "
+                f"{steps['degraded_read']}")
+        require(serve("serve_degraded") == healthy,
+                "tokens after the degraded read equal the healthy run's")
+        store.replace_node(3)
+        rep = step("drain", sched.drain_all)
+        steps["drain"]["repaired_stripes"] = rep.repaired_stripes
+        require(store.total_lost_shares() == 0
+                and steps["drain"]["launches"]["gf_matmul"] >= 1,
+                f"node 3 drained on the card: {steps['drain']}")
+        step("read_after_drain",
+             lambda: eng.reload_params(store, key="params"))
+        require(steps["read_after_drain"]["launches"]["gf_matmul"] == 0
+                and leaves_equal(eng.params, params),
+                "read after the drain: systematic, every leaf equal")
+        require(serve("serve_after_drain") == healthy,
+                "tokens after the drain equal the healthy run's")
+        out["steps"] = steps
+        out["flash_calls"] = flash_calls[:2]
+        out["tokens_healthy_first"] = healthy[0][:8]
+        del eng
+        store.close()
+        store = None
+        torch.cuda.empty_cache()
+
+        # (b) the same weights on the CPU plain path
+        cpu_params = placement.tree_flatten(params)[1].unflatten(
+            [x.cpu() for x in placement.tree_flatten(params)[0]])
+        prompt = np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (1, 16)).astype(np.int32)
+        max_len = 16 + 4
+        t0 = time.perf_counter()
+        lc, cc = model.prefill(params, {"tokens": torch.from_numpy(
+            prompt).cuda()}, max_len=max_len, q_chunk=None)
+        lh, ch = model.prefill(cpu_params, {"tokens": torch.from_numpy(
+            prompt)}, max_len=max_len, q_chunk=None)
+        errs = []
+        for t in range(5):
+            got, want = lc.float().cpu().numpy(), lh.numpy()
+            errs.append(float(np.abs(got - want).max()))
+            top2 = np.sort(want, -1)[..., -2:]
+            sure = (top2[..., 1] - top2[..., 0]) > 2 * MODEL_CPU_ATOL
+            require(errs[-1] <= MODEL_CPU_ATOL and np.array_equal(
+                got.argmax(-1)[sure], want.argmax(-1)[sure]),
+                f"card vs CPU logits at step {t}: max |diff| {errs[-1]} "
+                f"(tolerance {MODEL_CPU_ATOL})")
+            if t == 4:
+                break
+            tok = want[:, -1].argmax(-1)[:, None].astype(np.int32)
+            lc, cc = model.decode_step(params, cc, torch.from_numpy(
+                tok).cuda(), 16 + t, max_len=max_len)
+            lh, ch = model.decode_step(cpu_params, ch, torch.from_numpy(tok),
+                                       16 + t, max_len=max_len)
+        out["cpu_check"] = {"batch": 1, "prompt": 16, "decode_steps": 4,
+                            "max_abs_err": max(errs), "per_step": errs,
+                            "tolerance": MODEL_CPU_ATOL,
+                            "seconds": time.perf_counter() - t0}
+        del cpu_params, params, lc, cc, lh, ch
+        torch.cuda.empty_cache()
+
+        # (c) the reference's known answer
+        ka_cfg = get_config(KA_MODEL_ARCH).reduced(**KA_MODEL_OVERRIDES)
+        ka_params = params_from_numpy(numpy_params(ka_cfg, KA_MODEL_SEED))
+        prompt = ka_model_prompt(np, ka_cfg.vocab_size)
+        logits, _ = Model(ka_cfg).prefill(
+            ka_params, {"tokens": torch.from_numpy(prompt).cuda()},
+            q_chunk=None)
+        got = logits[0, -1, KA_MODEL_SLICE].cpu().numpy()
+        ka_err = float(np.abs(got - np.asarray(KA_MODEL_LOGITS)).max())
+        require(got.shape == (len(KA_MODEL_LOGITS),)
+                and ka_err <= KA_MODEL_ATOL,
+                f"model known answer: max |diff| {ka_err} (tolerance "
+                f"{KA_MODEL_ATOL})")
+        out["known_answer"] = {"max_abs_err": ka_err,
+                               "tolerance": KA_MODEL_ATOL}
+
+        # (d) serve_demo.py's own path: a rack killed while serving
+        demo_cfg = get_config(MODEL_ARCH).reduced()
+        demo = Model(demo_cfg)
+        demo_params = demo.init(torch.Generator(device="cuda").manual_seed(0))
+        spec = CodeSpec.make(DEMO_K, P)
+        layout = default_layout(spec.n, spec.k)
+        n0 = counted(gfm, circ)
+        t0 = time.perf_counter()
+        srv = CodedReadServer.for_pytree(demo_params, spec, layout=layout)
+        deng = ServingEngine.from_coded_store(demo, srv, batch_size=4,
+                                              max_len=128)
+        def demo_reqs():
+            r = np.random.default_rng(0)
+            return [Request(uid=i, prompt=r.integers(
+                1, demo_cfg.vocab_size, size=6 + i).astype(np.int32),
+                max_new_tokens=16) for i in range(4 * 2 + 1)]
+
+        d_healthy = [r.out_tokens for r in deng.serve(demo_reqs(), 16)]
+        victims = layout.nodes_in(0)[: spec.n - spec.k]
+        for v in victims:
+            srv.sim.fail_node(v)
+        deng.reload_params(srv)
+        require(leaves_equal(deng.params, demo_params)
+                and [r.out_tokens for r in deng.serve(demo_reqs(), 16)]
+                == d_healthy and srv.metrics.reads_degraded > 0,
+                "serve_demo: bit-exact tokens from the survivors")
+        require(srv.sim.repair_now() and torch.equal(srv.sim.node_a,
+                                                     srv.sim._orig_a),
+                "serve_demo: the cluster is whole after repair_now()")
+        deng.reload_params(srv)
+        require([r.out_tokens for r in deng.serve(demo_reqs(), 16)]
+                == d_healthy, "serve_demo: tokens after repair")
+        out["serve_demo"] = {
+            "code": f"[{spec.n},{spec.k}] GF({P})",
+            "block_symbols": srv.sim.S, "killed": list(victims),
+            "wall_ms": sync_s(t0) * 1e3, "launches": launched(gfm, circ, n0),
+            "reads": srv.metrics.summary()["reads"],
+            "repair": srv.metrics.summary()["repair"]}
+        del deng, srv, demo_params
+    finally:
+        attn_mod.flash_attention = real_flash
+        if store is not None:
+            store.close()
+    out["launches"] = counted(gfm, circ)
+    require(all(v > 0 for v in out["launches"].values()),
+            f"both kernels ran on the model path: {out['launches']}")
+    out["host_peak_rss_bytes"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--payload-mib", type=int, default=1024,
@@ -1530,6 +1921,7 @@ def main() -> int:
     from repro_torch.kernels.circulant_encode import circulant_encode as circ
     from repro_torch.kernels.gf_matmul import fold_mismatches
     from repro_torch.kernels.gf_matmul import gf_matmul as gfm
+    from repro_torch.configs import get_config
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -1556,9 +1948,12 @@ def main() -> int:
               "full_payload_mib": 1024})
 
     t0 = time.perf_counter()
+    model_stripes = -(-MODEL_PARAM_BYTES // (n * STORE_STRIPE))
+    demo_symbols = -(-model_param_bytes(torch, get_config(MODEL_ARCH)
+                                        .reduced()) // DEMO_N)
     kern = phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main,
                          (args.store_mib << 20) // STORE_OBJECTS,
-                         args.ckpt_mib)
+                         args.ckpt_mib, model_stripes, demo_symbols)
     emit({"phase": "kernels", "ok": True, "cases": kern["cases"],
           "max_abs_diff_vs_plain": kern["diffs"],
           "fold_mismatches": kern["fold_mismatches"],
@@ -1615,8 +2010,22 @@ def main() -> int:
     emit({"phase": "drills", "ok": True, "card": smi, "code": "[6,3] GF(257)",
           **drill_res, "seconds": time.perf_counter() - t0})
 
+    import dataclasses
+    cut = model_config(dataclasses, get_config)
+    require(model_param_bytes(torch, cut) == MODEL_PARAM_BYTES,
+            "the model phase's parameter count")
+    emit({"phase": "cut", "model": MODEL_ARCH, "reduced": {
+        "n_layers": [get_config(MODEL_ARCH).n_layers, cut.n_layers]}})
+    t0 = time.perf_counter()
+    model_res = phase_model(torch, np, gfm, circ)
+    emit({"phase": "model", "ok": True, "card": smi,
+          "code": f"[{n},{K}] GF({P})", "nodes": STORE_NODES,
+          "stripe_symbols": STORE_STRIPE, **model_res,
+          "seconds": time.perf_counter() - t0})
+
     paths = {"main": main_res, "store": store_res, "checkpoint": ckpt_res,
-             "serve": serve_res, "cluster": cluster_res, "drills": drill_res}
+             "serve": serve_res, "cluster": cluster_res, "drills": drill_res,
+             "model": model_res}
     source = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                             "src/repro/kernels/gf_matmul.py:96", "decode"),
               "circulant_encode": ("src/repro_torch/csrc/circulant_encode.cu",

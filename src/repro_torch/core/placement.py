@@ -32,6 +32,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 from . import gf
 
 
@@ -275,9 +277,10 @@ def pytree_to_bytes(tree: Any) -> tuple[bytes, TreeDef, list[dict]]:
 
 
 def bytes_to_leaves(payload: bytes, metas: list[dict],
-                    device="cpu") -> list[torch.Tensor]:
-    """The leaves of ``payload`` as tensors on ``device`` (a bfloat16 leaf
-    as a bfloat16 tensor)."""
+                    device=None) -> list[torch.Tensor]:
+    """The leaves of ``payload`` as tensors on ``device`` (None: the card;
+    a bfloat16 leaf as a bfloat16 tensor)."""
+    device = resolve_device(device)
     leaves, off = [], 0
     for m in metas:
         raw = payload[off: off + m["nbytes"]]
@@ -307,9 +310,9 @@ def pytree_to_blocks(tree: Any, n: int, p: int = gf.DEFAULT_P,
 
 
 def blocks_to_pytree(blocks: np.ndarray, treedef: TreeDef, spec: TreeSpec,
-                     device="cpu") -> Any:
-    """Inverse of pytree_to_blocks: leaves as tensors on ``device``.  Pure
-    byte reads for systematic blocks."""
+                     device=None) -> Any:
+    """Inverse of pytree_to_blocks: leaves as tensors on ``device`` (None:
+    the card).  Pure byte reads for systematic blocks."""
     sym = np.asarray(blocks).reshape(-1)
     payload = gf.symbols_to_bytes(sym)[: spec.total_bytes]
     return treedef.unflatten(bytes_to_leaves(payload, spec.leaves, device))

@@ -1,0 +1,50 @@
+"""Model stack of the port (``repro.models`` in the reference): the dense
+attention + FFN blocks ("ga", "la") and `Model`'s serving path.
+
+Parameters cross between the packages as numpy trees of the reference's
+structure: :func:`params_from_numpy` turns ``jax.device_get(params)`` into
+the port's tree, and :func:`numpy_params` builds such a tree from
+``numpy.random.default_rng(seed)`` without JAX, so the card and a CPU
+reference compute on identical weights.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.placement import tree_flatten
+from repro_torch.device import resolve_device
+
+from .model import Model  # noqa: F401
+
+
+def _leaf_tensor(x) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def params_from_numpy(tree: Any, device=None) -> Any:
+    """The reference's parameter tree with numpy leaves -> the port's tree
+    of tensors on ``device`` (None: the card), same structure (``cycles``
+    stays a tuple) and dtypes (a bfloat16 leaf stays bfloat16)."""
+    device = resolve_device(device)
+    leaves, treedef = tree_flatten(tree)
+    return treedef.unflatten([_leaf_tensor(x).to(device) for x in leaves])
+
+
+def numpy_params(cfg, seed: int) -> Any:
+    """Parameters of ``cfg`` drawn from ``numpy.random.default_rng(seed)``
+    (the port's init scales, truncated normals by rejection), as a tree of
+    numpy float32 arrays with the reference's structure: the same weights
+    on every host, for the reference (``jnp.asarray`` per leaf) and the
+    port (:func:`params_from_numpy`)."""
+    params = Model(cfg).init(np.random.default_rng(seed), device="cpu")
+    leaves, treedef = tree_flatten(params)
+    return treedef.unflatten([x.numpy() for x in leaves])
+
+
+__all__ = ["Model", "params_from_numpy", "numpy_params"]

@@ -1,0 +1,147 @@
+"""Model of the port: embeddings + stack + head (``repro.models.model`` in
+the reference, serving half).  Public API:
+
+    model = Model(cfg)
+    params = model.init(generator)                 (device=None: the card)
+    logits, cache = model.prefill(params, batch)
+    logits, cache = model.decode_step(params, cache, tokens, pos)
+
+Batch dict keys:
+    tokens (b, s) int            — or inputs_embeds (b, s, d) for [vlm]
+    positions (b, s) int         — or (3, b, s) for M-RoPE
+
+Parameter trees have the reference's structure, leaf names and dtypes, so
+`core.placement` serializes the port's tree to the reference's bytes and
+either package reads parameters the other stored.  ``Model.loss`` (the
+training path) is not ported yet (ROADMAP A13).
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core.placement import tree_flatten
+from repro_torch.device import resolve_device
+
+from . import transformer as tfm
+from .layers import (COMPUTE_DTYPE, apply_norm, embed_init, init_norm,
+                     positions_to_angles)
+
+Params = Any
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _encoder_decoder_unported(cfg) -> None:
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet: "
+            f"ROADMAP A13")
+
+
+class Model:
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    # ------------------------------------------------------------- params
+    def init(self, gen, device=None) -> Params:
+        """Parameters drawn from ``gen`` (a ``torch.Generator`` on
+        ``device``, or a numpy ``Generator``), as tensors on ``device``
+        (None: the card)."""
+        cfg = self.cfg
+        _encoder_decoder_unported(cfg)
+        device = resolve_device(device)
+        params: dict = {
+            "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), device),
+            "final_norm": init_norm(cfg, cfg.d_model, device),
+            "stack": tfm.init_stack(cfg, gen, device=device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
+                                           device)
+        if cfg.param_dtype != "float32":
+            dt = _DTYPES[cfg.param_dtype]
+            leaves, treedef = tree_flatten(params)
+            params = treedef.unflatten([x.to(dt) for x in leaves])
+        return params
+
+    def head(self, params):
+        if self.cfg.tie_embeddings:
+            return params["embed"].T
+        return params["lm_head"]
+
+    def _logits(self, params, h) -> torch.Tensor:
+        """bf16 ``h @ head``, then fp32."""
+        return (h @ self.head(params).to(h.dtype)).float()
+
+    # -------------------------------------------------------------- embed
+    def _embed_inputs(self, params, batch) -> torch.Tensor:
+        if "inputs_embeds" in batch:
+            return batch["inputs_embeds"].to(COMPUTE_DTYPE)
+        # gather, then cast: the same values as the reference's cast of
+        # the whole table before the gather, without a bf16 copy of it
+        return params["embed"][batch["tokens"]].to(COMPUTE_DTYPE)
+
+    # ------------------------------------------------------------ forward
+    def _positions(self, batch) -> torch.Tensor:
+        if "positions" in batch:
+            return batch["positions"]
+        if "inputs_embeds" in batch:
+            b, s, _ = batch["inputs_embeds"].shape
+            dev = batch["inputs_embeds"].device
+        else:
+            b, s = batch["tokens"].shape
+            dev = batch["tokens"].device
+        return torch.arange(s, dtype=torch.int32, device=dev)[None].expand(
+            b, s)
+
+    def forward(self, params, batch, mode: str, cache=None, *,
+                pos: Optional[int] = None, max_len: int = 0,
+                q_chunk: Optional[int] = None):
+        """Returns (final-normed hidden states, new cache or None, aux)."""
+        cfg = self.cfg
+        _encoder_decoder_unported(cfg)
+        x = self._embed_inputs(params, batch)
+        positions = self._positions(batch)
+        # masks use the temporal stream when M-RoPE supplies (t, h, w) streams
+        rope_pos = positions[0] if positions.ndim == 3 else positions   # (b,s)
+        cos, sin = positions_to_angles(cfg, positions)
+        ctx = tfm.Ctx(mode=mode, cos=cos, sin=sin, q_pos=rope_pos,
+                      pos=None if pos is None else int(pos), max_len=max_len,
+                      q_chunk=q_chunk)
+        x, cache, aux = tfm.apply_stack(cfg, params["stack"], x, ctx, cache)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return x, cache, aux
+
+    # ------------------------------------------------------------ serving
+    def init_cache(self, batch: int, max_len: int, device=None):
+        _encoder_decoder_unported(self.cfg)
+        return tfm.init_stack_cache(self.cfg, batch, max_len,
+                                    device=resolve_device(device))
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, *, max_len: int = 0,
+                q_chunk: Optional[int] = 1024):
+        """Run the prompt, return (last-position logits, filled cache)."""
+        if "inputs_embeds" in batch:
+            b, s = batch["inputs_embeds"].shape[:2]
+        else:
+            b, s = batch["tokens"].shape
+        max_len = max(max_len, s)
+        cache = self.init_cache(b, max_len, params["embed"].device)
+        h, cache, _ = self.forward(params, batch, "prefill", cache,
+                                   max_len=max_len, q_chunk=q_chunk)
+        return self._logits(params, h[:, -1:]), cache
+
+    @torch.inference_mode()
+    def decode_step(self, params, cache, tokens, pos, *, max_len: int):
+        """tokens: (b, 1) int; pos: absolute position of the incoming
+        token.  Returns (logits (b,1,V), new cache)."""
+        b = tokens.shape[0]
+        positions = torch.full((b, 1), int(pos), dtype=torch.int32,
+                               device=tokens.device)
+        batch = {"tokens": tokens, "positions": positions}
+        h, cache, _ = self.forward(params, batch, "decode", cache, pos=pos,
+                                   max_len=max_len)
+        return self._logits(params, h), cache

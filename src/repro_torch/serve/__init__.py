@@ -4,10 +4,11 @@
   deadlines + hedged reads, end-to-end share CRCs with corrupt-share
   quarantine, and a bounded admission queue with typed ``Overloaded``
   shedding;
-* `engine.CodedReadServer` — degraded-read block serving over the
-  cluster simulator (imported from `repro_torch.serve.engine` directly,
-  as in the reference).  The reference's ``ServingEngine`` needs the
-  model stack and is not ported yet.
+* `engine.CodedReadServer` / `engine.ServingEngine` — degraded-read
+  block serving over the cluster simulator and the batched LLM inference
+  engine it can feed (imported from `repro_torch.serve.engine` directly,
+  as in the reference, so importing the front end does not pull the
+  model stack).
 """
 from .frontend import (FrontEndMetrics, NodeHealth, Overloaded,
                        ReadFrontEnd, ReadReceipt, ReadTicket)

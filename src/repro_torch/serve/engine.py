@@ -1,24 +1,35 @@
-"""Degraded-read block serving over the cluster simulator (the
-`CodedReadServer` half of ``repro.serve.engine``).
+"""Serving layer of the port: coded storage reads + batched LLM inference
+(``repro.serve.engine`` in the reference).
 
-Every read goes to the block's assigned node when it is up (systematic:
-raw bytes, zero field operations) and *transparently* falls back to a
-one-launch any-k decode through the fused repair engine's cached inverses
-when assigned nodes are down, slow, or lost.  The node state, latency
-model and byte accounting come from `repro_torch.cluster.ClusterSimulator`,
-so a serving workload and a failure scenario compose directly.
+Two engines live here, layered:
 
-The reference's ``ServingEngine`` (batched LLM inference fed from coded
-storage) needs the model stack, which is not ported yet.
+* :class:`CodedReadServer` — degraded-read block serving over the cluster
+  simulator.  Every read goes to the block's assigned node when it is up
+  (systematic: raw bytes, zero field operations) and *transparently* falls
+  back to a one-launch any-k decode through the fused repair engine's
+  cached inverses when assigned nodes are down, slow, or lost.  The node
+  state, latency model and byte accounting come from
+  `repro_torch.cluster.ClusterSimulator`, so a serving workload and a
+  failure scenario compose directly.
+
+* :class:`ServingEngine` — prefill + KV-cache decode with a simple
+  continuous-batching request queue (admit-on-slot-free), on the device
+  of its parameters.  Its parameters can be materialized straight out of
+  a :class:`CodedReadServer` or a coded object store
+  (:meth:`ServingEngine.from_coded_store`): the kill-nodes-while-serving
+  path of ``examples/serve_demo.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import placement
 from repro_torch.exec.plan import PlanStats
+from repro_torch.models import Model
 
 
 class CodedReadServer:
@@ -107,4 +118,136 @@ class CodedReadServer:
         return self.sim.metrics
 
 
-__all__ = ["CodedReadServer"]
+def _read_coded_params(store, key: Optional[str]):
+    """One param-materialization path for both storage layers: a coded
+    object store (``key`` names the tree object) or a CodedReadServer
+    (``key=None``, the single-stripe cluster read)."""
+    if key is not None:
+        return store.get_pytree(key)
+    return store.read_state()
+
+
+# ------------------------------------------------------------- LLM serving
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray            # (s,) int32
+    max_new_tokens: int
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServingEngine:
+    """Batched prefill/decode engine with continuous batching.
+
+    Parameters
+    ----------
+    model : Model
+        The architecture to serve.
+    params : tree of tensors
+        Model parameters (materialize them from coded storage with
+        :meth:`from_coded_store`); the engine computes on their device.
+    batch_size : int
+        Concurrent decode slots.
+    max_len : int
+        KV-cache capacity; prompts + new tokens must fit.
+    temperature : float
+        0 = greedy argmax (the first maximum, as ``jnp.argmax``);
+        otherwise categorical sampling from a ``torch.Generator`` seeded
+        with ``seed`` (not the reference's ``jax.random`` draws).
+
+    The reference jits its prefill and decode step; here they are eager
+    calls under ``torch.inference_mode``.
+    """
+
+    def __init__(self, model: Model, params, *, batch_size: int, max_len: int,
+                 temperature: float = 0.0, seed: int = 0):
+        self.model = model
+        self.params = params
+        self.batch_size = batch_size
+        self.max_len = max_len
+        self.temperature = temperature
+        self.seed = seed
+        self._gen: Optional[torch.Generator] = None
+
+    @classmethod
+    def from_coded_store(cls, model: Model, store, *, key: Optional[str] = None,
+                         **engine_kwargs) -> "ServingEngine":
+        """Materialize parameters out of MSR-coded storage and serve.
+
+        ``store`` is either a :class:`CodedReadServer` (single-stripe
+        cluster; ``key`` omitted) or a `repro_torch.store.CodedObjectStore`
+        holding the parameters as a tree object under ``key``
+        (``put_pytree``).  Either way the read is systematic when the
+        storage is healthy and falls back to the one-launch degraded
+        decode for whatever is missing — the engine itself cannot tell
+        the difference (bit-exact either way).  The parameters land on
+        the storage's device."""
+        return cls(model, _read_coded_params(store, key), **engine_kwargs)
+
+    def reload_params(self, store, *, key: Optional[str] = None) -> None:
+        """Re-read parameters from coded storage (e.g. after the cluster
+        repaired a failed node, or to pick up a new checkpoint).  Accepts
+        the same ``store``/``key`` pairs as :meth:`from_coded_store`."""
+        self.params = _read_coded_params(store, key)
+
+    # ----------------------------------------------------------- one batch
+    @torch.inference_mode()
+    def generate(self, prompts: np.ndarray, max_new_tokens: int,
+                 stop_token: Optional[int] = None) -> np.ndarray:
+        """prompts: (b, s) int32, same length (padded upstream).
+        Returns (b, max_new_tokens) int32."""
+        b, s = prompts.shape
+        if s + max_new_tokens > self.max_len:
+            raise ValueError(f"prompt {s} + {max_new_tokens} new tokens "
+                             f"exceeds cache capacity {self.max_len}")
+        tokens = torch.as_tensor(np.asarray(prompts, np.int32),
+                                 device=self.params["embed"].device)
+        logits, cache = self.model.prefill(self.params, {"tokens": tokens},
+                                           max_len=self.max_len,
+                                           q_chunk=None)
+        out = np.zeros((b, max_new_tokens), np.int32)
+        tok = self._sample(logits)
+        for t in range(max_new_tokens):
+            out[:, t] = tok[:, 0].cpu().numpy()
+            logits, cache = self.model.decode_step(self.params, cache, tok,
+                                                   s + t,
+                                                   max_len=self.max_len)
+            tok = self._sample(logits)
+        return out
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        logits = logits[:, -1, :]
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, -1)[:, None].to(torch.int32)
+        if self._gen is None or self._gen.device != logits.device:
+            self._gen = torch.Generator(device=logits.device).manual_seed(
+                self.seed)
+        probs = torch.softmax(logits / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._gen).to(
+            torch.int32)
+
+    # ------------------------------------------------- continuous batching
+    def serve(self, requests: list[Request], prompt_len: int) -> list[Request]:
+        """Round-based continuous batching: up to `batch_size` active slots;
+        a finished request's slot is refilled from the queue at the next
+        prefill round.  Prompts are right-aligned/padded to prompt_len."""
+        queue = list(requests)
+        done: list[Request] = []
+        while queue:
+            active = queue[: self.batch_size]
+            queue = queue[self.batch_size:]
+            prompts = np.zeros((len(active), prompt_len), np.int32)
+            for i, r in enumerate(active):
+                p = r.prompt[-prompt_len:]
+                prompts[i, prompt_len - len(p):] = p
+            steps = max(r.max_new_tokens for r in active)
+            outs = self.generate(prompts, steps)
+            for i, r in enumerate(active):
+                r.out_tokens = outs[i, : r.max_new_tokens].tolist()
+                r.done = True
+                done.append(r)
+        return done
+
+
+__all__ = ["CodedReadServer", "Request", "ServingEngine"]

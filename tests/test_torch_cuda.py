@@ -447,3 +447,62 @@ def test_drills_pass_on_card(cuda, tmp_path):
     from repro_torch.cluster import run_drills
     for res in run_drills(tmp_path):
         assert res.passed and res.bit_exact and res.orphans == 0, res
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-27b", "starcoder2-7b"])
+def test_model_on_card_matches_cpu(cuda, arch):
+    """Prefill and three decode steps of a reduced config on the card
+    against the CPU plain path on the same weights: within four bf16 steps
+    at magnitude 4 (the card's and the CPU's matmuls sum in different
+    orders, so a bf16 output may land a step apart)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, numpy_params, params_from_numpy
+    cfg = get_config(arch).reduced()
+    tree = numpy_params(cfg, 0)
+    model = Model(cfg)
+    on_card = params_from_numpy(tree)
+    on_cpu = params_from_numpy(tree, device="cpu")
+    assert on_card["embed"].device.type == "cuda"
+    tok = rand((2, 40), cfg.vocab_size, 1)
+    lc, cc = model.prefill(on_card, {"tokens": on(cuda, tok)}, max_len=44)
+    lh, ch = model.prefill(on_cpu, {"tokens": torch.from_numpy(tok)},
+                           max_len=44)
+    for t in range(4):
+        got, want = lc.cpu().numpy(), lh.numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=0.125)
+        nxt = want[:, -1].argmax(-1)[:, None].astype(np.int32)
+        lc, cc = model.decode_step(on_card, cc, on(cuda, nxt), 40 + t,
+                                   max_len=44)
+        lh, ch = model.decode_step(on_cpu, ch, torch.from_numpy(nxt), 40 + t,
+                                   max_len=44)
+
+
+def test_degraded_param_reload_on_card_is_bit_equal(cuda):
+    """Parameters put into a card store and served; a node lost, the
+    reload decodes on the card (gf_matmul launches) into leaves bit-equal
+    to the healthy ones, and the tokens are identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement import tree_flatten
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.store import CodedObjectStore
+    cfg = get_config("qwen3-4b").reduced()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    store = CodedObjectStore(CodeSpec.make(4, P), n_nodes=10,
+                             stripe_symbols=1 << 12)
+    n0 = circulant_encode.launches
+    store.put_pytree("params", params)
+    assert circulant_encode.launches > n0
+    eng = ServingEngine.from_coded_store(model, store, key="params",
+                                         batch_size=2, max_len=40)
+    prompts = rand((2, 24), cfg.vocab_size, 2)
+    healthy = eng.generate(prompts, 12)
+    store.fail_node(3)
+    n0 = gf_matmul.launches
+    eng.reload_params(store, key="params")
+    assert gf_matmul.launches > n0
+    for x, y in zip(tree_flatten(eng.params)[0], tree_flatten(params)[0]):
+        assert x.device.type == "cuda" and torch.equal(x, y)
+    np.testing.assert_array_equal(eng.generate(prompts, 12), healthy)
+    store.close()

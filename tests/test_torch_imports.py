@@ -27,6 +27,9 @@ def port_modules() -> list[str]:
 def test_every_port_module_imports_without_jax_or_reference():
     mods = port_modules()
     assert len(mods) >= 30 and "repro_torch.store.object_store" in mods
+    assert {"repro_torch.models.model", "repro_torch.models.flash",
+            "repro_torch.configs.registry", "repro_torch.configs.paper_msr",
+            "repro_torch.serve.engine"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -54,7 +57,7 @@ def _imported_names(tree: ast.AST) -> set[str]:
 
 def test_chip_smoke_imports_neither():
     names = _imported_names(ast.parse((ROOT / "chip_smoke.py").read_text()))
-    assert "repro_torch.store" in names and "torch" in names
+    assert {"repro_torch.store", "repro_torch.models", "torch"} <= names
     assert not any(n == "jax" or n.startswith(("jax.", "repro."))
                    or n == "repro" for n in names), sorted(names)
 

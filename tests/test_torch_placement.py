@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import npy, rand
+from _torch_parity import no_cuda, npy, rand  # noqa: F401 (fixture)
 
 from repro.core import baselines as rbase
 from repro.core import placement as rplace
@@ -107,7 +107,7 @@ def test_unsorted_dict_and_bf16_leaf_bytes():
     assert [m["dtype"] for m in metas] == ["int32", "bfloat16", "uint8",
                                            "float32"]
     assert payload == rplace.pytree_to_bytes(rtree)[0]
-    leaves = tplace.bytes_to_leaves(payload, metas)
+    leaves = tplace.bytes_to_leaves(payload, metas, device="cpu")
     assert leaves[1].dtype == torch.bfloat16
     assert torch.equal(leaves[1], tree["mid"]["a"])
     rleaves = rplace.bytes_to_leaves(payload, metas)
@@ -118,6 +118,19 @@ def test_unsorted_dict_and_bf16_leaf_bytes():
         else:
             np.testing.assert_array_equal(got.numpy(), want)
 
+
+
+def test_tree_reads_default_to_the_card(no_cuda):
+    """Without a device the leaves go to the card, like every other entry
+    point of the port: on a host without CUDA the call raises instead of
+    landing on the CPU."""
+    _, tree, _ = _trees()[0]
+    payload, treedef, metas = tplace.pytree_to_bytes(tree)
+    blocks, _, spec = tplace.pytree_to_blocks(tree, 4, P)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tplace.bytes_to_leaves(payload, metas)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tplace.blocks_to_pytree(blocks, treedef, spec)
 
 @pytest.mark.parametrize("n", [4, 16])
 @pytest.mark.parametrize("name", ["unsorted_dict", "nested"])
@@ -131,7 +144,7 @@ def test_tree_blocks_identical_and_roundtrip(n, name):
         (rspec.leaves, rspec.total_bytes, rspec.n_blocks,
          rspec.block_symbols, rspec.treedef_repr)
     assert tplace.TreeSpec.from_json(spec.to_json()) == spec
-    back = tplace.blocks_to_pytree(rblocks, treedef, spec)
+    back = tplace.blocks_to_pytree(rblocks, treedef, spec, device="cpu")
     flat_back, td_back = tplace.tree_flatten(back)
     flat, td = tplace.tree_flatten(tree)
     assert td_back == td
