@@ -7,7 +7,7 @@ Run from the root of a checkout:
                           [--ckpt-mib 512] [--serve-mib 256]
 
 It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
-``build/kernels/`` and runs eleven phases, each printing one JSON line:
+``build/kernels/`` and runs twelve phases, each printing one JSON line:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    both kernels, one nvcc per source, started together;
@@ -94,7 +94,25 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             reference's known answer (KA_MODEL_LOGITS), both within
             0.125; serve_demo.py's rack kill on the card, bit-exact, and
             its repair.  Wall ms, prefill ms, decode ms a token, tokens/s,
-            launches, peak device memory, the host's peak resident size.
+            launches, peak device memory, the host's peak resident size;
+12. train   the same model (2 of 36 layers, float32 master parameters
+            drawn on the card) trained by make_train_step with
+            AdamWConfig() for 4 steps of 2 x 2048 batch_at tokens under
+            deterministic algorithms: each step's wall ms (the first
+            apart), tokens/s, loss and grad_norm (finite), the flash
+            forward (twice, remat) and backward in both layers counted per
+            step, peak device memory, the busy share of one more profiled
+            step; the flash forward and backward alone at the steps' shape
+            (bf16, 32 heads, two KV chunks of 1024) on the card and on the
+            CPU, within 3e-2; one 1 x 64-token step on the card and on the
+            CPU from the same weights, its attention on the flash path as
+            the timed steps' (counted), loss within 1e-2 and the grads of
+            lm_head, a query projection and a norm scale within 3e-2
+            relative L2; then train_tiny_lm.py's crash drill on
+            the card ([8, 4], 120 steps, checkpoints every 20, node 2 lost
+            at step 80): one repair event, the loss falls, the final state
+            bit-exact with an uninterrupted run, one circulant_encode
+            launch per save tile and gf_matmul at the repair.
 
 Then a ``kernels`` JSON line (launches by path), the ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -107,6 +125,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -301,7 +320,7 @@ def gf_matmul_grid(torch, gfm, ref, rnd, cmp, p: int) -> None:
 
 def phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main: int,
                   store_obj_bytes: int, ckpt_mib: int, model_stripes: int,
-                  demo_symbols: int) -> dict:
+                  demo_symbols: int, train_symbols: int) -> dict:
     """Each kernel vs its plain version, exact; returns max |diff| per
     kernel.  These launches are outside the main path's count."""
     dev = "cuda"
@@ -412,6 +431,19 @@ def phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main: int,
         cmp("gf_matmul", gfm(a, srcs, P), ref.gf_matmul_ref(a, srcs, P),
             f"{what} a{a_shape} sources {src_shapes}")
         del a, srcs
+    # the train path's own shapes (phase train's crash drill, [8, 4])
+    drill = CodeSpec.make(DRILL_K, P)
+    train_encodes, train_matmuls = train_shapes(train_symbols)
+    for what, s in train_encodes:
+        d = rnd((drill.n, s), P)
+        cmp("circulant_encode", circ(d, drill.c, P),
+            ref.circulant_encode_ref(d, drill.c, P),
+            f"{what} ({drill.n},{s})")
+    for what, a_shape, src_shapes in train_matmuls:
+        a = rnd(a_shape, P)
+        srcs = tuple(rnd(x, P) for x in src_shapes)
+        cmp("gf_matmul", gfm(a, srcs, P), ref.gf_matmul_ref(a, srcs, P),
+            f"{what} a{a_shape} sources {src_shapes}")
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return {"diffs": diffs, "cases": cases, "fold_mismatches": folds}
@@ -1889,6 +1921,299 @@ def phase_model(torch, np, gfm, circ) -> dict:
     return out
 
 
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048   # 2 x 2048 tokens: b*h*s^2 = 2^28, flash
+TRAIN_STEPS = 4             # timed full-width steps
+TRAIN_CPU_SEQ = 64          # card vs CPU: one 1 x 64-token step
+TRAIN_LOSS_ATOL = 1e-2      # tests/test_torch_train.py's LOSS_ATOL
+TRAIN_GRAD_RTOL = 3e-2      # and GRAD_RTOL (relative L2 per leaf)
+TRAIN_FLASH_TOL = 3e-2      # and FLASH_BF16_TOL (rtol = atol, bf16 flash)
+TRAIN_KV_CHUNK = 1024       # attention.attention's flash KV chunk
+TRAIN_GRAD_LEAVES = (("lm_head",), ("stack", "cycles", 0, "attn", "wq"),
+                     ("stack", "cycles", 0, "norm1", "scale"))
+DRILL_PRESET, DRILL_K, DRILL_CRASH = "tiny", 4, 80   # train_tiny_lm defaults
+
+
+def train_drill_symbols(torch) -> int:
+    """Symbols per block of the crash drill's checkpoints at
+    [2 * DRILL_K, DRILL_K]: the checkpointer's own layout
+    (placement.pytree_to_blocks) of the tiny preset's training state,
+    drawn on the CPU.  phase_train holds it against the drill's
+    manifests."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement import pytree_to_blocks
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import init_state
+    from repro_torch.train.tiny_lm import PRESETS
+    cfg = get_config("paper-tiny-lm").reduced(**PRESETS[DRILL_PRESET]["model"])
+    state = init_state(Model(cfg), adamw.AdamWConfig(), device="cpu")
+    return pytree_to_blocks(state, 2 * DRILL_K, P)[0].shape[1]
+
+
+def train_shapes(s: int) -> tuple[list, list]:
+    """circulant_encode's (what, s) and gf_matmul's (what, a, sources) on
+    the train path: the crash drill's save tiles and the regenerate of
+    the crashed node's pair over (r_prev, next_data), at s symbols per
+    block split into the checkpointer's tiles."""
+    from repro_torch.checkpoint.msr_checkpoint import SAVE_TILE_SYMBOLS
+    tiles = sorted({min(SAVE_TILE_SYMBOLS, s), s % SAVE_TILE_SYMBOLS or
+                    min(SAVE_TILE_SYMBOLS, s)})
+    return ([("train save tile", t) for t in tiles],
+            [("train repair regenerate", (2, DRILL_K + 1),
+              ((1, t), (DRILL_K, t))) for t in tiles])
+
+
+def phase_train(torch, np, gfm, circ, n_steps: int) -> dict:
+    """The training path on the card.  (a) qwen3-4b at full width, 2 of 36
+    layers, float32 master parameters drawn on the card from a seed:
+    ``make_train_step`` with ``AdamWConfig()`` for ``n_steps`` steps of
+    2 x 2048 ``batch_at`` tokens (the attention takes the flash path,
+    forward and backward, in both layers: counted), one more step
+    profiled; then the flash forward and backward alone at the steps'
+    shape, and one 1 x 64-token step's loss and grads through the flash
+    path, on the card and on the CPU from the same inputs.  (b) train_tiny_lm.py's crash drill
+    on the card: node 2 lost at step 80 of 120, its checkpoint pair
+    repaired, the final state bit-exact with an uninterrupted run.
+    Kernel counts set to 0 just before and read just after."""
+    import dataclasses
+    import math
+    import tempfile
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement import tree_flatten
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch.steps import (accumulate_grads, deterministic,
+                                          make_train_step)
+    from repro_torch.models import Model
+    from repro_torch.models.flash import FlashAttention, flash_attention
+    from repro_torch.optim import adamw
+    from repro_torch.train import tiny_lm
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def leaf(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    gfm.launches = 0
+    circ.launches = 0
+    cfg = dataclasses.replace(get_config(MODEL_ARCH), n_layers=MODEL_LAYERS)
+    model = Model(cfg)
+    opt_cfg = adamw.AdamWConfig()
+    out: dict = {"config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                            "n_kv_heads": cfg.n_kv_heads,
+                            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                            "vocab_size": cfg.vocab_size,
+                            "loss_chunk": cfg.loss_chunk},
+                 "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                 "optimizer": dataclasses.asdict(opt_cfg),
+                 "n_microbatches": 1}
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+
+    def batch(i):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in batch_at(dcfg, i).items()}
+
+    with deterministic():
+        # (a) full width
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        state = {"params": params, "opt": adamw.init(params, opt_cfg)}
+        out["init_ms"] = sync_s(t0) * 1e3
+        out["param_bytes"] = sum(x.numel() * x.element_size()
+                                 for x in tree_flatten(params)[0])
+        del params
+        step_fn = make_train_step(model, opt_cfg)
+        rows = []
+        for i in range(n_steps):
+            b = batch(i)
+            f0, b0 = FlashAttention.forward_calls, FlashAttention.backward_calls
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b)
+            dt = sync_s(t0)
+            row = {"step": i, "wall_ms": dt * 1e3,
+                   "loss": float(metrics["loss"]),
+                   "grad_norm": float(metrics["grad_norm"]),
+                   "lr": float(metrics["lr"]),
+                   "flash_forward": FlashAttention.forward_calls - f0,
+                   "flash_backward": FlashAttention.backward_calls - b0,
+                   "peak_device_bytes": torch.cuda.max_memory_allocated()}
+            require(math.isfinite(row["loss"])
+                    and math.isfinite(row["grad_norm"]),
+                    f"train step {i}: finite loss and grad_norm ({row})")
+            require(row["flash_forward"] == 2 * cfg.n_layers
+                    and row["flash_backward"] == cfg.n_layers,
+                    f"train step {i}: the flash forward twice (remat) and "
+                    f"its backward once in each layer ({row})")
+            rows.append(row)
+        require(int(state["opt"].step) == n_steps,
+                f"the optimizer counted {n_steps} steps")
+        warm = [r["wall_ms"] for r in rows[1:]]
+        out["steps"] = rows
+        out["first_step_ms"] = rows[0]["wall_ms"]
+        out["warm_step_ms"] = warm
+        out["warm_step_ms_median"] = statistics.median(warm)
+        out["tokens_per_s"] = (TRAIN_BATCH * TRAIN_SEQ
+                               / (out["warm_step_ms_median"] / 1e3))
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        b = batch(n_steps)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b)
+            prof_s = sync_s(t0)
+        require(math.isfinite(float(metrics["loss"])),
+                "the profiled step's loss is finite")
+        out["profile_step"] = busy_share(torch, prof, prof_s)
+        del prof, b
+
+        params = state["params"]
+        del state, metrics
+        torch.cuda.empty_cache()
+
+        # the flash forward and backward alone at the timed steps' shape
+        # (repeat-kv'd to 32 heads, bf16, two KV chunks), card vs CPU
+        t0 = time.perf_counter()
+        g = np.random.default_rng(5)
+        qkv = [torch.from_numpy(g.standard_normal(
+            (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.head_dim),
+            dtype=np.float32)).bfloat16() for _ in range(3)]
+        do = torch.from_numpy(g.standard_normal(
+            qkv[0].shape, dtype=np.float32)).bfloat16()
+        pos = torch.arange(TRAIN_SEQ, dtype=torch.int32).expand(
+            TRAIN_BATCH, TRAIN_SEQ)
+        fres = {}
+        for dev in ("cuda", "cpu"):
+            xs = [x.to(dev).requires_grad_() for x in qkv]
+            o = flash_attention(*xs, pos.to(dev), pos.to(dev), True, None,
+                                TRAIN_KV_CHUNK)
+            o.backward(do.to(dev))
+            fres[dev] = [t.detach().float().cpu()
+                         for t in (o, *(x.grad for x in xs))]
+            del xs, o
+        flash_err = {}
+        for name, a, b in zip(("o", "dq", "dk", "dv"), fres["cuda"],
+                              fres["cpu"]):
+            d = (a - b).abs()
+            require(bool((d <= TRAIN_FLASH_TOL * (1 + b.abs())).all()),
+                    f"flash {name} card vs CPU at ({TRAIN_BATCH}, "
+                    f"{TRAIN_SEQ}, {cfg.n_heads}, {cfg.head_dim}): max "
+                    f"|diff| {float(d.max())} (tolerance {TRAIN_FLASH_TOL})")
+            flash_err[name] = float(d.max())
+        out["flash_check"] = {
+            "shape": [TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.head_dim],
+            "dtype": "bfloat16", "causal": True, "kv_chunk": TRAIN_KV_CHUNK,
+            "kv_chunks": TRAIN_SEQ // TRAIN_KV_CHUNK,
+            "max_abs_diff": flash_err, "tolerance": TRAIN_FLASH_TOL,
+            "seconds": time.perf_counter() - t0}
+        del fres, qkv, do
+        torch.cuda.empty_cache()
+
+        # the same weights, one 1 x 64-token step on the card and the CPU,
+        # its attention on the flash path as the timed steps' (at 64
+        # tokens it would take the plain _sdpa path)
+        tok = np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (1, TRAIN_CPU_SEQ + 1)).astype(np.int32)
+        small = {"tokens": torch.from_numpy(tok[:, :-1].copy()),
+                 "labels": torch.from_numpy(tok[:, 1:].copy())}
+        t0 = time.perf_counter()
+        res, flash_calls = {}, {}
+        old_min = attn_mod.FLASH_MIN_ELEMS
+        attn_mod.FLASH_MIN_ELEMS = 1
+        try:
+            for dev in ("cuda", "cpu"):
+                leaves, tdef = tree_flatten(params)
+                on = tdef.unflatten([x.to(dev) for x in leaves])
+                f0 = FlashAttention.forward_calls
+                b0 = FlashAttention.backward_calls
+                loss, _, grads = accumulate_grads(
+                    model, on, {k: v.to(dev) for k, v in small.items()})
+                flash_calls[dev] = [FlashAttention.forward_calls - f0,
+                                    FlashAttention.backward_calls - b0]
+                res[dev] = (float(loss), [leaf(grads, pth).float().cpu()
+                                          for pth in TRAIN_GRAD_LEAVES])
+                del on, grads
+        finally:
+            attn_mod.FLASH_MIN_ELEMS = old_min
+        require(all(c == [2 * cfg.n_layers, cfg.n_layers]
+                    for c in flash_calls.values()),
+                f"card vs CPU train step on the flash path in every layer, "
+                f"forward twice (remat) and backward once: {flash_calls}")
+        (lc, gc), (lh, gh) = res["cuda"], res["cpu"]
+        errs = {"/".join(map(str, pth)): float((a - b).norm() / b.norm())
+                for pth, a, b in zip(TRAIN_GRAD_LEAVES, gc, gh)}
+        require(abs(lc - lh) <= TRAIN_LOSS_ATOL
+                and all(e <= TRAIN_GRAD_RTOL for e in errs.values()),
+                f"card vs CPU train step: loss {lc} vs {lh} (tolerance "
+                f"{TRAIN_LOSS_ATOL}), grads rel L2 {errs} (tolerance "
+                f"{TRAIN_GRAD_RTOL})")
+        out["cpu_check"] = {"batch": 1, "seq": TRAIN_CPU_SEQ,
+                            "attention": "flash",
+                            "flash_calls": flash_calls,
+                            "loss_card": lc, "loss_cpu": lh,
+                            "loss_abs_err": abs(lc - lh),
+                            "loss_tolerance": TRAIN_LOSS_ATOL,
+                            "grad_rel_l2": errs,
+                            "grad_tolerance": TRAIN_GRAD_RTOL,
+                            "seconds": time.perf_counter() - t0}
+        del params, gc, gh
+        torch.cuda.empty_cache()
+
+    # (b) the crash drill of train_tiny_lm.py, on the card
+    n0 = counted(gfm, circ)
+    args = tiny_lm.parser().parse_args(
+        ["--preset", DRILL_PRESET, "--k", str(DRILL_K),
+         "--crash-step", str(DRILL_CRASH)])
+    with tempfile.TemporaryDirectory() as d:
+        args.ckpt_dir = d
+        t0 = time.perf_counter()
+        drill = tiny_lm.run(args, log=lambda *_: None)
+        drill_s = sync_s(t0)
+        manifest_symbols = {
+            json.loads(json.loads(m.read_text())["tree"])["block_symbols"]
+            for m in Path(d).glob("step_*/manifest.json")}
+    launches = launched(gfm, circ, n0)
+    leaves = tree_flatten(drill["state"])[0]
+    require(all(x.device.type == "cuda" for x in leaves),
+            "the drill's state lives on the card")
+    s_block = train_drill_symbols(torch)
+    require(manifest_symbols == {s_block},
+            f"the drill's checkpoints hold {manifest_symbols} symbols a "
+            f"block; the kernels phase checked {s_block}")
+    from repro_torch.checkpoint.msr_checkpoint import SAVE_TILE_SYMBOLS
+    tiles = -(-s_block // SAVE_TILE_SYMBOLS)
+    saves = 2 * (drill["steps"] // drill["ckpt_every"])
+    require(launches["circulant_encode"] == saves * tiles
+            and launches["gf_matmul"] >= 1,
+            f"drill: one circulant_encode launch per save tile ({saves} "
+            f"saves x {tiles} tiles) and gf_matmul at the repair: "
+            f"{launches}")
+    rep = drill["repairs"][0]
+    out["drill"] = {
+        "preset": DRILL_PRESET, "code": f"[{2 * DRILL_K},{DRILL_K}] GF({P})",
+        "params": drill["n_params"], "steps": drill["steps"],
+        "ckpt_every": drill["ckpt_every"], "crash_step": drill["crash_step"],
+        "repair": {k: rep[k] for k in ("step", "failed", "ckpt_step",
+                                       "restore_path", "repair_bytes")},
+        "loss_first": drill["losses"][0], "loss_last": drill["losses"][-1],
+        "bit_exact": True, "saves": saves, "tiles_per_save": tiles,
+        "symbols_per_block": s_block, "launches": launches,
+        "seconds": drill_s}
+    del drill, leaves
+    out["launches"] = counted(gfm, circ)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--payload-mib", type=int, default=1024,
@@ -1902,6 +2227,9 @@ def main() -> int:
     ap.add_argument("--serve-mib", type=int, default=256,
                     help="serve-phase payload over 16 objects (default 256)")
     args = ap.parse_args()
+    # deterministic cuBLAS for the train phase's bit-exact crash drill:
+    # read when the process makes its first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -1953,7 +2281,8 @@ def main() -> int:
                                         .reduced()) // DEMO_N)
     kern = phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main,
                          (args.store_mib << 20) // STORE_OBJECTS,
-                         args.ckpt_mib, model_stripes, demo_symbols)
+                         args.ckpt_mib, model_stripes, demo_symbols,
+                         train_drill_symbols(torch))
     emit({"phase": "kernels", "ok": True, "cases": kern["cases"],
           "max_abs_diff_vs_plain": kern["diffs"],
           "fold_mismatches": kern["fold_mismatches"],
@@ -2023,9 +2352,14 @@ def main() -> int:
           "stripe_symbols": STORE_STRIPE, **model_res,
           "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
+    train_res = phase_train(torch, np, gfm, circ, TRAIN_STEPS)
+    emit({"phase": "train", "ok": True, "card": smi, **train_res,
+          "seconds": time.perf_counter() - t0})
+
     paths = {"main": main_res, "store": store_res, "checkpoint": ckpt_res,
              "serve": serve_res, "cluster": cluster_res, "drills": drill_res,
-             "model": model_res}
+             "model": model_res, "train": train_res}
     source = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                             "src/repro/kernels/gf_matmul.py:96", "decode"),
               "circulant_encode": ("src/repro_torch/csrc/circulant_encode.cu",

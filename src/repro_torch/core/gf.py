@@ -82,10 +82,14 @@ def inv(x, p: int = DEFAULT_P, *, device=None) -> torch.Tensor:
 # Matmul over GF(p)
 # ---------------------------------------------------------------------------
 
-def matmul(a, b, p: int = DEFAULT_P, *, device=None) -> torch.Tensor:
+def matmul(a, b, p: int = DEFAULT_P, *, precision=None,
+           device=None) -> torch.Tensor:
     """(a @ b) mod p, exact — the plain torch version (int64 multiply-adds
     folded on the int32 schedule), on any device.  The Hopper kernel is
-    reached through ``repro_torch.kernels.ops.gf_matmul``."""
+    reached through ``repro_torch.kernels.ops.gf_matmul``.  ``precision``
+    is accepted and ignored, as in the reference: integer lanes have no
+    floating-point rounding to choose."""
+    del precision
     from repro_torch.kernels.ref import gf_matmul_ref
     dev = device_of(a, b, device=device)
     return gf_matmul_ref(as_int32(a, p, dev), as_int32(b, p, dev), p)

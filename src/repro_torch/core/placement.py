@@ -267,19 +267,28 @@ def _leaf_bytes(leaf) -> tuple[bytes, str, list]:
 
 
 def pytree_to_bytes(tree: Any) -> tuple[bytes, TreeDef, list[dict]]:
+    """(payload, treedef, metas) of ``tree``.  Raises ValueError for a
+    leaf of object dtype before returning anything: its raw bytes are
+    pointers, which no read could turn back into the leaf."""
     leaves, treedef = tree_flatten(tree)
     metas, chunks = [], []
     for leaf in leaves:
         raw, dtype, shape = _leaf_bytes(leaf)
+        if dtype == "object":
+            raise ValueError("a tree leaf of object dtype cannot be stored: "
+                             "its bytes are pointers, not values")
         metas.append({"dtype": dtype, "shape": shape, "nbytes": len(raw)})
         chunks.append(raw)
     return b"".join(chunks), treedef, metas
 
 
 def bytes_to_leaves(payload: bytes, metas: list[dict],
-                    device=None) -> list[torch.Tensor]:
-    """The leaves of ``payload`` as tensors on ``device`` (None: the card;
-    a bfloat16 leaf as a bfloat16 tensor)."""
+                    device=None) -> list:
+    """The leaves of ``payload``: numeric and boolean leaves as tensors on
+    ``device`` (None: the card; a bfloat16 leaf as a bfloat16 tensor, a
+    byte-swapped leaf such as ``>i4`` as a native-order tensor of equal
+    values).  A leaf of a dtype torch has no tensor for (strings, bytes,
+    datetimes) comes back as the numpy array the reference returns."""
     device = resolve_device(device)
     leaves, off = [], 0
     for m in metas:
@@ -287,11 +296,16 @@ def bytes_to_leaves(payload: bytes, metas: list[dict],
         off += m["nbytes"]
         if m["dtype"] == "bfloat16":
             arr = np.frombuffer(raw, dtype=np.int16).reshape(m["shape"])
-            t = torch.from_numpy(arr.copy()).view(torch.bfloat16)
-        else:
-            arr = np.frombuffer(raw, dtype=np.dtype(m["dtype"]))
-            t = torch.from_numpy(arr.reshape(m["shape"]).copy())
-        leaves.append(t.to(device))
+            leaves.append(torch.from_numpy(arr.copy()).view(
+                torch.bfloat16).to(device))
+            continue
+        dt = np.dtype(m["dtype"])
+        arr = np.frombuffer(raw, dtype=dt).reshape(m["shape"])
+        if dt.kind not in "biufc":
+            leaves.append(arr.copy())
+            continue
+        arr = arr.astype(dt.newbyteorder("="))      # a native-order copy
+        leaves.append(torch.from_numpy(arr).to(device))
     return leaves
 
 

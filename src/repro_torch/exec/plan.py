@@ -230,6 +230,13 @@ class PlanCache:
         Field modulus.
     bucket_min, bucket_ratio :
         The stream-axis ladder (:func:`bucket_symbols`).
+    donate : bool, optional
+        The reference's buffer-donation switch (None: on for a device
+        backend, off on the CPU), accepted and recorded as ``.donate``.
+        On the card it reuses nothing: torch has no buffer donation, every
+        planned op reads its operands where the caller left them (or from
+        the planner's own staging) and returns a fresh tensor, so a
+        caller's operand is never overwritten and no result changes.
     mesh : None or 1
         Stream-axis sharding is not ported yet; anything else raises.
     device : torch.device or str, optional
@@ -237,13 +244,15 @@ class PlanCache:
     """
 
     def __init__(self, backend, p: int, *, bucket_min: int = BUCKET_MIN,
-                 bucket_ratio: float = BUCKET_RATIO, mesh=None, device=None):
+                 bucket_ratio: float = BUCKET_RATIO,
+                 donate: Optional[bool] = None, mesh=None, device=None):
         _check_mesh(mesh)
         self.backend = backend
         self.p = int(p)
         self.bucket_min = int(bucket_min)
         self.bucket_ratio = float(bucket_ratio)
         self.device = resolve_device(device)
+        self.donate = _donation(donate, self.device)
         # pinned host staging for numpy operands bound for the card
         self.staging = StagingPool(pin=self.device.type == "cuda")
         self._plans: set[tuple] = set()
@@ -474,6 +483,12 @@ class PlanCache:
         return make_regen_fn(self.backend.matmul, self.p)
 
 
+def _donation(donate: Optional[bool], device: torch.device) -> bool:
+    """``donate`` as the reference normalizes it: None is on for a
+    device backend and off on the CPU."""
+    return device.type != "cpu" if donate is None else bool(donate)
+
+
 def _check_mesh(mesh) -> None:
     if mesh is not None and mesh != 1:
         raise NotImplementedError(
@@ -483,19 +498,23 @@ def _check_mesh(mesh) -> None:
 
 # --------------------------------------------------------------- registry
 def get_planner(backend, p: int, *, bucket_min: int = BUCKET_MIN,
-                bucket_ratio: float = BUCKET_RATIO, mesh=None,
+                bucket_ratio: float = BUCKET_RATIO,
+                donate: Optional[bool] = None, mesh=None,
                 device=None) -> PlanCache:
-    """The shared PlanCache for (backend, p, ladder, device): every code
-    and engine on the same backend and device shares one plan cache."""
+    """The shared PlanCache for (backend, p, ladder, donation, device):
+    every code and engine on the same backend and device shares one plan
+    cache.  ``donate`` is recorded only (see :class:`PlanCache`)."""
     _check_mesh(mesh)
     dev = resolve_device(device)
+    donate = _donation(donate, dev)
     key = (getattr(backend, "name", id(backend)), int(p), int(bucket_min),
-           float(bucket_ratio), str(dev))
+           float(bucket_ratio), donate, str(dev))
     with _LOCK:
         pc = _REGISTRY.get(key)
         if pc is None:
             pc = PlanCache(backend, p, bucket_min=bucket_min,
-                           bucket_ratio=bucket_ratio, device=dev)
+                           bucket_ratio=bucket_ratio, donate=donate,
+                           device=dev)
             _REGISTRY[key] = pc
         return pc
 

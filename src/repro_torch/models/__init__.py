@@ -1,5 +1,6 @@
 """Model stack of the port (``repro.models`` in the reference): the dense
-attention + FFN blocks ("ga", "la") and `Model`'s serving path.
+attention + FFN blocks ("ga", "la") and `Model` — its loss (training,
+with the flash backward and per-cycle remat) and its serving path.
 
 Parameters cross between the packages as numpy trees of the reference's
 structure: :func:`params_from_numpy` turns ``jax.device_get(params)`` into

@@ -1,19 +1,20 @@
-"""Model of the port: embeddings + stack + head (``repro.models.model`` in
-the reference, serving half).  Public API:
+"""Model of the port: embeddings + stack + chunked-loss head
+(``repro.models.model`` in the reference).  Public API:
 
     model = Model(cfg)
     params = model.init(generator)                 (device=None: the card)
+    loss, aux = model.loss(params, batch)
     logits, cache = model.prefill(params, batch)
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
 Batch dict keys:
     tokens (b, s) int            — or inputs_embeds (b, s, d) for [vlm]
+    labels (b, s) int            — train only
     positions (b, s) int         — or (3, b, s) for M-RoPE
 
 Parameter trees have the reference's structure, leaf names and dtypes, so
 `core.placement` serializes the port's tree to the reference's bytes and
-either package reads parameters the other stored.  ``Model.loss`` (the
-training path) is not ported yet (ROADMAP A13).
+either package reads parameters the other stored.
 """
 from __future__ import annotations
 
@@ -98,8 +99,10 @@ class Model:
 
     def forward(self, params, batch, mode: str, cache=None, *,
                 pos: Optional[int] = None, max_len: int = 0,
-                q_chunk: Optional[int] = None):
-        """Returns (final-normed hidden states, new cache or None, aux)."""
+                q_chunk: Optional[int] = None, remat: bool = True):
+        """Returns (final-normed hidden states, new cache or None, aux).
+        ``remat`` recomputes each cycle's activations in the backward
+        (mode "train" only)."""
         cfg = self.cfg
         _encoder_decoder_unported(cfg)
         x = self._embed_inputs(params, batch)
@@ -110,9 +113,38 @@ class Model:
         ctx = tfm.Ctx(mode=mode, cos=cos, sin=sin, q_pos=rope_pos,
                       pos=None if pos is None else int(pos), max_len=max_len,
                       q_chunk=q_chunk)
-        x, cache, aux = tfm.apply_stack(cfg, params["stack"], x, ctx, cache)
+        x, cache, aux = tfm.apply_stack(cfg, params["stack"], x, ctx, cache,
+                                        remat=remat)
         x = apply_norm(cfg, params["final_norm"], x)
         return x, cache, aux
+
+    # --------------------------------------------------------------- loss
+    def loss(self, params, batch, *, remat: bool = True):
+        """Mean next-token cross entropy, chunked over the sequence by
+        ``cfg.loss_chunk``: each chunk's logits are a bf16 ``h @ head``
+        taken to fp32 (softcapped when ``cfg.logit_softcap``), and its
+        ``logsumexp - logit[label]`` summed in order.  Returns
+        ``(xent + 0.01 * aux, {"xent", "aux"})``."""
+        cfg = self.cfg
+        h, _, aux = self.forward(params, batch, "train", remat=remat)
+        labels = batch["labels"].long()
+        head = self.head(params).to(COMPUTE_DTYPE)
+        b, s, _ = h.shape
+        chunk = min(cfg.loss_chunk, s)
+        if s % chunk:
+            chunk = s
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(0, s, chunk):
+            logits = (h[:, c:c + chunk] @ head).float()
+            if cfg.logit_softcap:
+                logits = cfg.logit_softcap * torch.tanh(
+                    logits / cfg.logit_softcap)
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = torch.take_along_dim(
+                logits, labels[:, c:c + chunk, None], dim=-1)[..., 0]
+            total = total + (lse - ll).sum()
+        loss = total / (b * s)
+        return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_len: int, device=None):

@@ -8,7 +8,11 @@ under one ``lax.scan``, the port loops over the cycles.  Remainder layers
 are ``rem_{r}``.
 
 Modes: "train" (no cache), "prefill" (build cache), "decode" (consume
-cache, s == 1).  Caches mirror the parameter stacking.
+cache, s == 1).  Caches mirror the parameter stacking.  In "train" mode
+with ``remat=True`` each cycle runs under
+``torch.utils.checkpoint.checkpoint`` (the reference's
+``jax.checkpoint(cycle_body)``): its activations are recomputed in the
+backward instead of kept.
 
 Ported block kinds: "ga" (global attention + dense FFN) and "la"
 (sliding-window attention + dense FFN).  The MoE, recurrent, xLSTM and
@@ -20,6 +24,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import ffn as ffn_mod
@@ -182,25 +187,32 @@ def init_stack_cache(cfg, batch: int, max_len: int, *, decoder: bool = False,
 
 # ---------------------------------------------------------- stack: apply
 def apply_stack(cfg, params: dict, x, ctx: Ctx, cache: Optional[dict] = None,
-                *, decoder: bool = False):
+                *, decoder: bool = False, remat: bool = True):
     """Returns (x, new_cache_or_None, aux_sum)."""
     n_cycles, rem = cfg.cycles()
     pattern = cfg.layer_pattern
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {}
 
+    def cycle(xc, aux, c: int):
+        caches = []
+        for j, kind in enumerate(pattern):
+            cj = None if cache is None else _index_tree(cache["cycles"][j], c)
+            xc, cj_new, a = apply_block(
+                cfg, _index_tree(params["cycles"][j], c), kind, xc, ctx, cj,
+                decoder=decoder)
+            aux = aux + a
+            caches.append(cj_new)
+        return xc, aux, caches
+
     if n_cycles > 0:
         per_cycle = []
         for c in range(n_cycles):
-            caches = []
-            for j, kind in enumerate(pattern):
-                cj = None if cache is None else _index_tree(
-                    cache["cycles"][j], c)
-                x, cj_new, a = apply_block(
-                    cfg, _index_tree(params["cycles"][j], c), kind, x, ctx,
-                    cj, decoder=decoder)
-                aux_total = aux_total + a
-                caches.append(cj_new)
+            if remat and ctx.mode == "train":
+                x, aux_total, caches = checkpoint(cycle, x, aux_total, c,
+                                                  use_reentrant=False)
+            else:
+                x, aux_total, caches = cycle(x, aux_total, c)
             per_cycle.append(caches)
         if cache is not None:
             new_cache["cycles"] = tuple(

@@ -1,15 +1,20 @@
-"""Training control plane of the port (``repro.train`` in the reference).
+"""Training of the port (``repro.train`` in the reference).
 
-Only `fault_tolerance` is ported: failure injection, heartbeats, elastic
-plans and the `Supervisor` that drives a caller's step function with
-checkpoint repair and write-behind saves.  The model stack's serving
-path is ported (`repro_torch.models`, `repro_torch.serve.engine`); the
-training loop (``train/loop.py``) with ``Model.loss``, the optimizers and
-the data pipeline is not ported yet.
+`fault_tolerance`: failure injection, heartbeats, elastic plans and the
+`Supervisor` that drives a step function with checkpoint repair and
+write-behind saves.  `loop`: ``train`` over the model's eager train step
+(``repro_torch.launch.steps``), AdamW (``repro_torch.optim``) and the
+synthetic pipeline (``repro_torch.data``), under the supervisor when a
+checkpointer is given.  `tiny_lm`: the end-to-end crash drill
+(``python -m repro_torch.train.tiny_lm``).
 """
 from .fault_tolerance import (ClusterScheduleInjector, ElasticPlan,
                               FailureEvent, FailureInjector,
                               HeartbeatMonitor, Supervisor, plan_elastic)
+from .loop import (TrainConfig, init_state, numpy_state, state_from_numpy,
+                   train)
 
 __all__ = ["FailureEvent", "FailureInjector", "ClusterScheduleInjector",
-           "HeartbeatMonitor", "ElasticPlan", "plan_elastic", "Supervisor"]
+           "HeartbeatMonitor", "ElasticPlan", "plan_elastic", "Supervisor",
+           "TrainConfig", "init_state", "train", "state_from_numpy",
+           "numpy_state"]

@@ -506,3 +506,82 @@ def test_degraded_param_reload_on_card_is_bit_equal(cuda):
         assert x.device.type == "cuda" and torch.equal(x, y)
     np.testing.assert_array_equal(eng.generate(prompts, 12), healthy)
     store.close()
+
+
+# ------------------------------------------------------------- training
+@pytest.mark.parametrize("dtype,window", [(torch.float32, None),
+                                          (torch.float32, 96),
+                                          (torch.bfloat16, None)])
+def test_flash_backward_on_card_matches_cpu(cuda, dtype, window):
+    """The flash forward and backward on the card against the CPU plain
+    path on the same inputs: the tolerances of tests/test_flash.py (2e-5
+    output, 3e-4 grads; bf16 3e-2)."""
+    from repro_torch.models.flash import FlashAttention, flash_attention
+    tol = 3e-2 if dtype == torch.bfloat16 else None
+    rng = np.random.default_rng(0)
+    q, k, v = [torch.from_numpy((rng.standard_normal((2, 256, 4, 64)) * 0.5
+                                 ).astype(np.float32)).to(dtype)
+               for _ in range(3)]
+    pos = torch.arange(256, dtype=torch.int32)[None].expand(2, 256)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.to(dev).requires_grad_(True) for x in (q, k, v)]
+        n_bwd = FlashAttention.backward_calls
+        o = flash_attention(*leaves, pos.to(dev), pos.to(dev), True, window,
+                            64)
+        (o.float() ** 2).sum().backward()
+        assert FlashAttention.backward_calls == n_bwd + 1
+        outs.append([o.detach().float().cpu()]
+                    + [x.grad.float().cpu() for x in leaves])
+    for i, (got, want) in enumerate(zip(*outs)):
+        t = tol or (2e-5 if i == 0 else 3e-4)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=t, atol=t)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Loss and grads of the train step on a reduced qwen3-4b, the flash
+    path forced: card against CPU within the CPU parity tests' tolerances
+    (loss 1e-2 absolute, each grad leaf 3e-2 relative L2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement import tree_flatten
+    from repro_torch.launch.steps import accumulate_grads
+    from repro_torch.models import Model, numpy_params, params_from_numpy
+    from repro_torch.models import attention as attn_mod
+    cfg = get_config("qwen3-4b").reduced(n_layers=2, loss_chunk=16)
+    tree = numpy_params(cfg, 0)
+    tok = rand((2, 33), cfg.vocab_size, 4)
+    res = []
+    old = attn_mod.FLASH_MIN_ELEMS
+    attn_mod.FLASH_MIN_ELEMS = 1
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            b = {"tokens": torch.from_numpy(tok[:, :-1].copy()).to(dev),
+                 "labels": torch.from_numpy(tok[:, 1:].copy()).to(dev)}
+            loss, _, g = accumulate_grads(
+                Model(cfg), params_from_numpy(tree, dev), b)
+            res.append((float(loss), [x.cpu() for x in tree_flatten(g)[0]]))
+    finally:
+        attn_mod.FLASH_MIN_ELEMS = old
+    (lc, gc), (lh, gh) = res
+    assert abs(lc - lh) <= 1e-2
+    for a, b in zip(gc, gh):
+        assert float((a - b).norm() / b.norm()) <= 3e-2
+
+
+def test_tiny_train_is_bit_deterministic_on_card(cuda):
+    """Three steps of the tiny preset, twice from the same seed: every
+    leaf of the two final states bit-equal (the determinism the crash
+    drill's bit-exact resume rests on)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement import tree_flatten
+    from repro_torch.train import TrainConfig, train
+    from repro_torch.train.tiny_lm import PRESETS
+    preset = PRESETS["tiny"]
+    cfg = get_config("paper-tiny-lm").reduced(**preset["model"])
+    tcfg = TrainConfig(n_steps=3, global_batch=preset["batch"],
+                       seq_len=preset["seq"], seed=0)
+    states = [train(cfg, tcfg, log=lambda *_: None)[0] for _ in range(2)]
+    la, ta = tree_flatten(states[0])
+    lb, tb = tree_flatten(states[1])
+    assert ta == tb and la[0].device.type == "cuda"
+    assert all(torch.equal(a, b) for a, b in zip(la, lb))

@@ -29,7 +29,10 @@ def test_every_port_module_imports_without_jax_or_reference():
     assert len(mods) >= 30 and "repro_torch.store.object_store" in mods
     assert {"repro_torch.models.model", "repro_torch.models.flash",
             "repro_torch.configs.registry", "repro_torch.configs.paper_msr",
-            "repro_torch.serve.engine"} <= set(mods)
+            "repro_torch.serve.engine", "repro_torch.optim.adamw",
+            "repro_torch.optim.compression", "repro_torch.data.pipeline",
+            "repro_torch.launch.steps", "repro_torch.train.loop",
+            "repro_torch.train.tiny_lm"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

@@ -207,3 +207,151 @@ def test_cost_formulas_match():
             for f in (1, 3):
                 assert tbase.rs_scenario_repair_symbols(k, s, f) == \
                     rbase.rs_scenario_repair_symbols(k, s, f)
+
+
+# ------------------------------- leaves torch has no native tensor for
+def _odd_tree():
+    """A byte-swapped int32 leaf, a string leaf and a plain float32 leaf,
+    as numpy (what either package writes for them)."""
+    return {"be": (np.arange(6).reshape(2, 3) * 70001 - 9).astype(">i4"),
+            "s": np.array(["ab", "c", "de"], dtype="<U2"),
+            "w": np.random.default_rng(3).standard_normal(5).astype(
+                np.float32)}
+
+
+def _assert_odd_leaves(got: dict) -> None:
+    """The port's read of ``_odd_tree``: the swapped leaf a native int32
+    tensor of equal values, the string leaf the reference's numpy array."""
+    want = _odd_tree()
+    assert isinstance(got["be"], torch.Tensor) and got["be"].dtype == \
+        torch.int32
+    np.testing.assert_array_equal(got["be"].numpy(), want["be"])
+    assert isinstance(got["s"], np.ndarray) and got["s"].dtype == \
+        np.dtype("<U2")
+    np.testing.assert_array_equal(got["s"], want["s"])
+    assert torch.equal(got["w"], torch.from_numpy(want["w"]))
+
+
+def test_swapped_and_string_leaves_read_back():
+    tree = _odd_tree()
+    payload, _, metas = tplace.pytree_to_bytes(tree)
+    rpayload, _, rmetas = rplace.pytree_to_bytes(tree)
+    assert (payload, metas) == (rpayload, rmetas)
+    assert [m["dtype"] for m in metas] == [">i4", "<U2", "float32"]
+    leaves = tplace.bytes_to_leaves(payload, metas, device="cpu")
+    _assert_odd_leaves(dict(zip(("be", "s", "w"), leaves)))
+    for got, want in zip(rplace.bytes_to_leaves(payload, metas),
+                         tree.values()):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("failed", [(), (2,)])
+def test_reference_written_store_and_checkpoint_with_odd_leaves(tmp_path,
+                                                                 failed):
+    """A store and a checkpoint the reference wrote from a tree with a
+    ``>i4`` and a ``<U2`` leaf, read by the port (healthy, and with a
+    node lost)."""
+    import dataclasses
+
+    import repro.checkpoint.msr_checkpoint as rck
+    import repro.store as rstore
+    import repro_torch.checkpoint.msr_checkpoint as tck
+    import repro_torch.store as tstore
+    from repro.core.circulant import CodeSpec as RSpec
+    from repro_torch.core.circulant import CodeSpec as TSpec
+    ref = rstore.CodedObjectStore(RSpec.make(2, P), n_nodes=6,
+                                  stripe_symbols=16)
+    ref.put_pytree("t", _odd_tree())
+    stats = [{**{f.name: getattr(st, f.name)
+                 for f in dataclasses.fields(st)},
+              "code_class": st.code_class.to_meta()}
+             for st in (ref.stat(k) for k in ref.keys())]
+    port = tstore.store_from_numpy(TSpec.make(2, P), ref._shares, stats,
+                                   n_nodes=6, stripe_symbols=16,
+                                   device="cpu")
+    for v in failed:
+        port.fail_node(v)
+    _assert_odd_leaves(port.get_pytree("t"))
+
+    rck.MSRCheckpointer(tmp_path, RSpec.make(3, P)).save(1, _odd_tree())
+    ck = tck.MSRCheckpointer(tmp_path, TSpec.make(3, P), device="cpu")
+    for f in failed:
+        for path in ck._node_files(1, f):
+            path.unlink()
+    template = {"be": torch.zeros((2, 3), dtype=torch.int32),
+                "s": _odd_tree()["s"], "w": torch.zeros(5)}
+    got, rep = ck.restore(template, 1, failed_nodes=failed)
+    assert rep.path == ("regenerate" if failed else "systematic")
+    _assert_odd_leaves(got)
+
+
+def test_port_written_odd_leaves_read_by_both(tmp_path):
+    """The port's put and save of the same tree: its own read returns it,
+    and the reference restores the port's checkpoint to the same values
+    and dtypes."""
+    import repro.checkpoint.msr_checkpoint as rck
+    import repro_torch.checkpoint.msr_checkpoint as tck
+    import repro_torch.store as tstore
+    from repro.core.circulant import CodeSpec as RSpec
+    from repro_torch.core.circulant import CodeSpec as TSpec
+    st = tstore.CodedObjectStore(TSpec.make(2, P), n_nodes=6,
+                                 stripe_symbols=16, device="cpu")
+    st.put_pytree("t", _odd_tree())
+    st.fail_node(3)
+    _assert_odd_leaves(st.get_pytree("t"))
+
+    tck.MSRCheckpointer(tmp_path, TSpec.make(3, P), device="cpu").save(
+        1, _odd_tree())
+    got, _ = rck.MSRCheckpointer(tmp_path, RSpec.make(3, P)).restore(
+        _odd_tree(), 1, failed_nodes=(4,))
+    for key, want in _odd_tree().items():
+        assert got[key].dtype == want.dtype
+        np.testing.assert_array_equal(got[key], want)
+
+
+def test_object_leaves_rejected_before_any_share(tmp_path):
+    """A leaf whose bytes are pointers is refused by the put and the save
+    before anything is stored: no object, no share, no step directory."""
+    import repro_torch.checkpoint.msr_checkpoint as tck
+    import repro_torch.store as tstore
+    from repro_torch.core.circulant import CodeSpec as TSpec
+    tree = {"o": np.array([object(), 1], dtype=object), "w": np.zeros(3)}
+    with pytest.raises(ValueError, match="object dtype"):
+        tplace.pytree_to_bytes(tree)
+    st = tstore.CodedObjectStore(TSpec.make(2, P), n_nodes=6,
+                                 stripe_symbols=16, device="cpu")
+    with pytest.raises(ValueError, match="object dtype"):
+        st.put_pytree("t", tree)
+    assert st.keys() == [] and all(not held for held in st._shares)
+    ck = tck.MSRCheckpointer(tmp_path, TSpec.make(3, P), device="cpu")
+    with pytest.raises(ValueError, match="object dtype"):
+        ck.save(1, tree)
+    assert ck.steps() == [] and sorted(tmp_path.iterdir()) == []
+
+
+# ------------------------------------------- keywords kept for the callers
+def test_matmul_precision_and_planner_donate_change_nothing():
+    from repro.core import gf as rgf
+    from repro_torch.core import gf as tgf
+    from repro_torch.exec import plan as tplan
+    from repro_torch.kernels import dispatch
+    a, b = rand((3, 5), P, 1), rand((5, 40), P, 2)
+    want = npy(rgf.matmul(a, b, P, precision="highest"))
+    for prec in (None, "highest", "default"):
+        np.testing.assert_array_equal(
+            npy(tgf.matmul(a, b, P, precision=prec, device="cpu")), want)
+    be = dispatch.get("torch-int32")
+    outs = []
+    for donate in (None, False, True):
+        pc = tplan.PlanCache(be, P, bucket_min=32, donate=donate,
+                             device="cpu")
+        assert pc.donate is bool(donate)
+        blocks = torch.from_numpy(b.copy())
+        outs.append(pc.matmul(torch.from_numpy(a), blocks).host())
+        assert torch.equal(blocks, torch.from_numpy(b))   # never consumed
+    for got in outs:
+        np.testing.assert_array_equal(npy(got), want)
+    d = tplan.get_planner(be, P, donate=True, device="cpu")
+    assert d.donate and d is tplan.get_planner(be, P, donate=True,
+                                               device="cpu")
+    assert not tplan.get_planner(be, P, device="cpu").donate
