@@ -7,7 +7,7 @@ Run from the root of a checkout:
                           [--ckpt-mib 512] [--serve-mib 256]
 
 It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
-``build/kernels/`` and runs twelve phases, each printing one JSON line:
+``build/kernels/`` and runs thirteen phases, each printing one JSON line:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    both kernels, one nvcc per source, started together;
@@ -18,7 +18,8 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             unreduced or negative inputs, and at the main path's, the
             store path's (store_matmul_shapes) and the checkpoint, serve
             and cluster paths' shapes (durability_shapes) and the model
-            path's (model_store_shapes, demo_shapes);
+            and families paths' (model_store_shapes for each stored
+            parameter tree, demo_shapes);
             plus the exhaustive check of the kernel's Barrett fold over
             every uint32 value at p in {5, 257, 46337};
 4. main     the port's main path at the repo's production width, [16, 8]
@@ -95,7 +96,26 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             0.125; serve_demo.py's rack kill on the card, bit-exact, and
             its repair.  Wall ms, prefill ms, decode ms a token, tokens/s,
             launches, peak device memory, the host's peak resident size;
-12. train   the same model (2 of 36 layers, float32 master parameters
+12. families
+            the registry's other block kinds at their published widths,
+            only depth cut ("cut" lines): granite-moe-1b-a400m (MoE, 2 of
+            24 layers) and whisper-medium (encoder-decoder, 2 + 2 of 24 +
+            24) put into the [16, 8] store (one circulant_encode launch
+            per window) and read with node 3 lost (one gf_matmul launch
+            per failure pattern, every leaf equal); xlstm-1.3b (8 of 48:
+            7 mLSTM + 1 sLSTM) and recurrentgemma-2b (3 of 26: rg, rg,
+            la) drawn on the card; 4 requests each (2048 prompt tokens +
+            32 greedy through ServingEngine; whisper: 1500 frame
+            embeddings and a 256-token prompt + 32 through
+            Model.prefill / decode_step), tokens from the read
+            parameters equal to the put ones'; card vs CPU logits of a
+            1 x 64 prompt and 4 decode steps within 0.125 (an MoE's
+            routing held on identical logits; a card/CPU difference is
+            allowed only where routing parted at a near-tie, reported);
+            each family's known answer (KA_FAMILY_LOGITS).  Put and
+            degraded-read ms, warm prefill ms, decode ms a token,
+            tokens/s, peak device memory, the host's peak resident size;
+13. train   qwen3-4b again (2 of 36 layers, float32 master parameters
             drawn on the card) trained by make_train_step with
             AdamWConfig() for 4 steps of 2 x 2048 batch_at tokens under
             deterministic algorithms: each step's wall ms (the first
@@ -179,6 +199,59 @@ def ka_model_prompt(np, vocab: int):
     """The known-answer prompt: (1, 16) token ids from default_rng(1)."""
     return np.random.default_rng(1).integers(0, vocab, (1, 16)).astype(
         np.int32)
+
+
+# Known answers of phase families: the same slice of the JAX reference's
+# prefill logits for each new family's .reduced() config (xlstm cut to 9
+# layers, as the CPU parity tests hold it: one full cycle and an mLSTM
+# remainder) on numpy_params(cfg, KA_MODEL_SEED) and ka_family_batch();
+# held within KA_MODEL_ATOL.
+KA_FAMILY_OVERRIDES = {"xlstm-1.3b": {"n_layers": 9}}
+KA_FAMILY_LOGITS = {
+    "granite-moe-1b-a400m": (
+        0.546875, -0.328125, 0.1884765625, -0.87109375, -0.54296875,
+        0.353515625, 1.46875, -0.58984375, -0.515625, -0.83984375, -1.421875,
+        0.271484375, 0.625, -1.578125, -0.5859375, 0.306640625, -1.5703125,
+        -0.09521484375, 1.03125, 1.703125, -0.01092529296875, 0.2255859375,
+        -0.2490234375, 0.24609375, 1.03125, -0.67578125, 0.26171875, 1.421875,
+        -0.177734375, -1.0625, 0.41796875, 0.056396484375
+    ),
+    "xlstm-1.3b": (
+        0.68359375, 0.07958984375, 0.373046875, -0.64453125, -1.3046875,
+        1.0234375, 0.96875, -1.3046875, -0.50390625, 0.1279296875, 1.9453125,
+        -1.140625, 0.93359375, -0.1640625, 0.99609375, -0.5, 0.298828125,
+        0.3984375, 1.4765625, 1.6953125, -0.96484375, 1.3984375, -1.6875,
+        1.34375, 0.62109375, 1.6796875, -0.93359375, 0.283203125, 1.6171875,
+        0.0074462890625, -0.44140625, -1.8359375
+    ),
+    "recurrentgemma-2b": (
+        1.3046875, 0.03173828125, 0.294921875, -2.09375, -1.1640625,
+        0.2216796875, 0.8828125, -0.71875, -1.1015625, -1.875, 0.36328125,
+        0.9375, -0.0712890625, -0.373046875, 1.0546875, 1.453125,
+        -0.341796875, 0.5390625, 1.421875, 0.08251953125, -0.8984375,
+        0.36328125, -1.5, -1.609375, -1.28125, 1.515625, 0.28125, -0.69140625,
+        0.30078125, 1.0234375, 0.63671875, 0.016357421875
+    ),
+    "whisper-medium": (
+        -0.50390625, -0.546875, -1.0625, 0.92578125, -1.4453125, 0.376953125,
+        0.166015625, 0.294921875, 0.78125, -0.8046875, -0.75, 0.1318359375,
+        0.25390625, -0.90234375, -0.50390625, -0.4140625, 0.06982421875,
+        -0.96484375, 0.484375, -1.328125, -0.3984375, -0.79296875, -0.734375,
+        0.443359375, -0.9609375, 1.0234375, -0.11669921875, -0.94921875,
+        0.58984375, -0.400390625, -0.87890625, 0.66796875
+    ),
+}
+
+
+def ka_family_batch(np, cfg) -> dict:
+    """The known-answer batch of a family: ka_model_prompt()'s tokens,
+    and for an encoder-decoder (1, encoder_seq, d) frame embeddings, 0.02
+    times standard normals from default_rng(2)."""
+    batch = {"tokens": ka_model_prompt(np, cfg.vocab_size)}
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = (np.random.default_rng(2).standard_normal(
+            (1, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32)
+    return batch
 
 
 # Published peak device-memory rates (NVIDIA data sheets), by card name.
@@ -319,7 +392,7 @@ def gf_matmul_grid(torch, gfm, ref, rnd, cmp, p: int) -> None:
 
 
 def phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main: int,
-                  store_obj_bytes: int, ckpt_mib: int, model_stripes: int,
+                  store_obj_bytes: int, ckpt_mib: int, model_stripes: list,
                   demo_symbols: int, train_symbols: int) -> dict:
     """Each kernel vs its plain version, exact; returns max |diff| per
     kernel.  These launches are outside the main path's count."""
@@ -412,13 +485,17 @@ def phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main: int,
         cmp("gf_matmul", gfm(a, srcs, P), ref.gf_matmul_ref(a, srcs, P),
             f"{what} a{a_shape} sources {src_shapes}")
         del a, srcs
-    # the model path's own shapes (phase model)
-    model_encodes, model_matmuls = model_store_shapes(model_stripes)
-    for what, s in model_encodes:
-        d = rnd((n, s), P)
-        cmp("circulant_encode", circ(d, spec.c, P),
-            ref.circulant_encode_ref(d, spec.c, P), f"{what} ({n},{s})")
-        del d
+    # the model paths' own shapes (phases model and families: one stripe
+    # count per stored parameter tree)
+    model_matmuls = []
+    for stripes in model_stripes:
+        encodes, matmuls = model_store_shapes(stripes)
+        model_matmuls += matmuls
+        for what, s in encodes:
+            d = rnd((n, s), P)
+            cmp("circulant_encode", circ(d, spec.c, P),
+                ref.circulant_encode_ref(d, spec.c, P), f"{what} ({n},{s})")
+            del d
     demo = CodeSpec.make(DEMO_K, P)
     d = rnd((demo.n, demo_symbols), P)
     cmp("circulant_encode", circ(d, demo.c, P),
@@ -1921,6 +1998,351 @@ def phase_model(torch, np, gfm, circ) -> dict:
     return out
 
 
+# Phase families: the registry's other block kinds at their published
+# widths, only depth cut.  granite-moe and whisper are served from the
+# coded store (put, then read with node 3 lost); xlstm and recurrentgemma
+# are drawn on the card.
+FAMILIES = {
+    "granite-moe-1b-a400m": {"layers": {"n_layers": 2},
+                             "param_bytes": 629_440_512, "stored": True},
+    "whisper-medium": {"layers": {"n_layers": 2, "encoder_layers": 2},
+                       "param_bytes": 447_418_368, "stored": True},
+    # one full cycle: 7 mLSTM + 1 sLSTM
+    "xlstm-1.3b": {"layers": {"n_layers": 8},
+                   "param_bytes": 3_090_350_304, "stored": False},
+    # one cycle: rg, rg, la (window 2048: the decode wraps the ring)
+    "recurrentgemma-2b": {"layers": {"n_layers": 3},
+                          "param_bytes": 6_270_679_040, "stored": False},
+}
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 4, 2048, 32
+WHISPER_PROMPT = 256        # decoder prompt over 1500 frame embeddings
+FAMILY_CPU_PROMPT = 64      # card vs CPU: a 1 x 64 prompt
+FAMILY_PROFILE_PROMPT = 256  # the profiled short generate's prompt
+FAMILY_LOST_NODE = 3
+
+
+def family_config(dataclasses, get_config, arch: str):
+    return dataclasses.replace(get_config(arch), **FAMILIES[arch]["layers"])
+
+
+def degraded_patterns(store, key: str, node: int) -> int:
+    """Failure patterns of a degraded read of ``key`` with ``node`` lost:
+    the distinct code positions the node holds among the key's stripes
+    (the store decodes each pattern's stripes in one gf_matmul launch)."""
+    return len({store.placement_of(key, t).index(node)
+                for t in range(store.stat(key).n_stripes)
+                if node in store.placement_of(key, t)})
+
+
+def family_traffic(np, cfg, batch: int, prompt: int, seed: int) -> dict:
+    """Seeded numpy traffic of phase families: token prompts, and for an
+    encoder-decoder its frame embeddings (the stubbed frontend's output,
+    0.02 times standard normals)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, prompt)
+                                  ).astype(np.int32)}
+    if cfg.is_encoder_decoder:
+        out["enc_embeds"] = (rng.standard_normal(
+            (batch, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32)
+    return out
+
+
+def phase_families(torch, np, gfm, circ) -> dict:
+    """The registry's other block kinds on the card at their published
+    widths, depth cut (FAMILIES): granite-moe and whisper put into the
+    [16, 8] store and read back with node 3 lost (one circulant_encode
+    launch per put window, one gf_matmul launch per failure pattern,
+    every leaf equal), xlstm and recurrentgemma drawn on the card; each
+    served to 4 requests (granite, xlstm, recurrentgemma: 2048 prompt
+    tokens + 32 greedy through ServingEngine; whisper: 1500 frames and a
+    256-token prompt + 32 through Model.prefill / decode_step), the
+    tokens from read parameters equal to those from the put ones; the
+    same weights on the CPU against the card's logits (1 x 64 prompt and
+    4 decode steps), the MoE's routing held on identical logits; each
+    family's known answer.  Kernel counts set to 0 just before and read
+    just after."""
+    import dataclasses
+    import resource
+    from repro_torch.configs import get_config
+    from repro_torch.core import placement
+    from repro_torch.core.circulant import CodeSpec
+    from repro_torch.models import Model, moe, numpy_params, params_from_numpy
+    from repro_torch.serve.engine import (Request, ServingEngine,
+                                          _read_coded_params)
+    from repro_torch.store import CodedObjectStore
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def leaves_equal(a, b) -> bool:
+        la, ta = placement.tree_flatten(a)
+        lb, tb = placement.tree_flatten(b)
+        return ta == tb and all(x.dtype == y.dtype and x.device == y.device
+                                and torch.equal(x, y)
+                                for x, y in zip(la, lb))
+
+    def to_dev(batch, dev):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def generate(model, params, cfg, traffic, prompt: int, new: int):
+        """Greedy tokens of the 4 requests: ServingEngine.generate, or
+        for an encoder-decoder (the reference's engine takes token
+        prompts only) Model.prefill and decode_step."""
+        batch = {k: v[:, :prompt] if k == "tokens" else v
+                 for k, v in traffic.items()}
+        if not cfg.is_encoder_decoder:
+            eng = ServingEngine(model, params, batch_size=FAMILY_BATCH,
+                                max_len=prompt + new)
+            return eng.generate(batch["tokens"], new).tolist()
+        logits, cache = model.prefill(params, to_dev(batch, "cuda"),
+                                      max_len=prompt + new, q_chunk=None)
+        toks = []
+        for t in range(new):
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            toks.append(tok)
+            logits, cache = model.decode_step(params, cache, tok, prompt + t,
+                                              max_len=prompt + new)
+        return torch.cat(toks, 1).cpu().numpy().tolist()
+
+    def serve(model, params, cfg, traffic) -> tuple[list, dict]:
+        """Greedy tokens of the 4 requests and the serving times."""
+        times = {"prefill_s": [], "decode_s": []}
+        real_prefill, real_decode = model.prefill, model.decode_step
+
+        def timed(fn, key):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(*a, **kw)
+                times[key].append(sync_s(t0))
+                return res
+            return run
+
+        model.prefill = timed(real_prefill, "prefill_s")
+        model.decode_step = timed(real_decode, "decode_s")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            if cfg.is_encoder_decoder:
+                out = generate(model, params, cfg, traffic, WHISPER_PROMPT,
+                               FAMILY_NEW)
+            else:       # through the engine's request queue
+                eng = ServingEngine(model, params, batch_size=FAMILY_BATCH,
+                                    max_len=FAMILY_PROMPT + FAMILY_NEW)
+                reqs = [Request(uid=i, prompt=traffic["tokens"][i],
+                                max_new_tokens=FAMILY_NEW)
+                        for i in range(FAMILY_BATCH)]
+                out = [r.out_tokens for r in
+                       eng.serve(reqs, prompt_len=FAMILY_PROMPT)]
+            wall = sync_s(t0)
+        finally:
+            model.prefill, model.decode_step = real_prefill, real_decode
+        require(all(len(t) == FAMILY_NEW and min(t) >= 0
+                    and max(t) < cfg.vocab_size for t in out),
+                f"{cfg.name}: {FAMILY_NEW} tokens in range per request")
+        return out, {
+            "wall_ms": wall * 1e3,
+            "prefill_ms": times["prefill_s"][0] * 1e3,
+            "decode_ms_per_token": statistics.median(times["decode_s"]) * 1e3,
+            "tokens_per_s": FAMILY_BATCH * FAMILY_NEW / wall,
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+    def card_vs_cpu(model, params, cfg) -> dict:
+        """1 x 64 prefill + 4 decode steps on the card and on the CPU from
+        the same weights; for an MoE, each top-k call's choices on both
+        devices, and the routing of the CPU's logits on the card."""
+        cpu_params = placement.tree_flatten(params)[1].unflatten(
+            [x.cpu() for x in placement.tree_flatten(params)[0]])
+        batch = family_traffic(np, cfg, 1, FAMILY_CPU_PROMPT, 2)
+        calls = {"cuda": [], "cpu": []}
+        real_top_k, real_route = moe.top_k, moe.route
+        logits_seen = []
+
+        def rec_top_k(probs, k):
+            vals, idx = real_top_k(probs, k)
+            calls[probs.device.type].append((probs.detach().cpu().numpy(),
+                                             idx.cpu().numpy()))
+            return vals, idx
+
+        def rec_route(cfg_, logits, cap):
+            if logits.device.type == "cpu" and not logits_seen:
+                logits_seen.append((logits.clone(), cap))
+            return real_route(cfg_, logits, cap)
+
+        moe.top_k, moe.route = rec_top_k, rec_route
+        t0 = time.perf_counter()
+        max_len = FAMILY_CPU_PROMPT + 4
+        errs, greedy_differs = [], False
+        try:
+            lc, cc = model.prefill(params, to_dev(batch, "cuda"),
+                                   max_len=max_len, q_chunk=None)
+            lh, ch = model.prefill(cpu_params, to_dev(batch, "cpu"),
+                                   max_len=max_len, q_chunk=None)
+            for t in range(5):
+                got, want = lc.float().cpu().numpy(), lh.numpy()
+                errs.append(float(np.abs(got - want).max()))
+                top2 = np.sort(want, -1)[..., -2:]
+                sure = (top2[..., 1] - top2[..., 0]) > 2 * MODEL_CPU_ATOL
+                greedy_differs |= not np.array_equal(
+                    got.argmax(-1)[sure], want.argmax(-1)[sure])
+                if t == 4:
+                    break
+                tok = want[:, -1].argmax(-1)[:, None].astype(np.int32)
+                lc, cc = model.decode_step(
+                    params, cc, torch.from_numpy(tok).cuda(),
+                    FAMILY_CPU_PROMPT + t, max_len=max_len)
+                lh, ch = model.decode_step(
+                    cpu_params, ch, torch.from_numpy(tok),
+                    FAMILY_CPU_PROMPT + t, max_len=max_len)
+        finally:
+            moe.top_k, moe.route = real_top_k, real_route
+        res = {"batch": 1, "prompt": FAMILY_CPU_PROMPT, "decode_steps": 4,
+               "max_abs_err": max(errs), "per_step": errs,
+               "tolerance": MODEL_CPU_ATOL, "greedy_differs": greedy_differs}
+        ok = max(errs) <= MODEL_CPU_ATOL and not greedy_differs
+        if cfg.n_experts:
+            flips = []
+            for i, ((pc, ic), (ph, ih)) in enumerate(zip(calls["cuda"],
+                                                         calls["cpu"])):
+                differ = (np.sort(ic, -1) != np.sort(ih, -1)).any(-1)
+                for pos in zip(*np.nonzero(differ)):
+                    mine = set(ic[pos].tolist()) - set(ih[pos].tolist())
+                    theirs = set(ih[pos].tolist()) - set(ic[pos].tolist())
+                    gap = max(abs(float(np.log(ph[pos][a]) - np.log(ph[pos][b])))
+                              for a in mine for b in theirs)
+                    flips.append({"call": i, "position": [int(x) for x in pos],
+                                  "log_prob_gap": gap})
+            logits, cap = logits_seen[0]
+            on_card = moe.route(cfg, logits.cuda(), cap)
+            on_cpu = moe.route(cfg, logits, cap)
+            same = all(torch.equal(on_card[k].cpu(), on_cpu[k])
+                       for k in ("gate_idx", "pos_in_expert", "keep"))
+            require(same, f"{cfg.name}: routing of identical logits equal "
+                    f"on the card and the CPU")
+            res["routing"] = {"top_k_calls": len(calls["cuda"]),
+                              "flips": flips[:16], "n_flips": len(flips),
+                              "identical_logits_equal": same}
+            # a card/CPU difference of whole-expert size is allowed only
+            # where routing parted at a near-tie
+            ok = ok or (flips and all(f["log_prob_gap"] <= MODEL_CPU_ATOL
+                                      for f in flips))
+        require(ok, f"{cfg.name}: card vs CPU logits: {res}")
+        res["seconds"] = time.perf_counter() - t0
+        del cpu_params
+        return res
+
+    out: dict = {"configs": {}}
+    gfm.launches = 0
+    circ.launches = 0
+    for arch, spec in FAMILIES.items():
+        t_arch = time.perf_counter()
+        cfg = family_config(dataclasses, get_config, arch)
+        model = Model(cfg)
+        rec: dict = {"config": {
+            k: getattr(cfg, k) for k in (
+                "n_layers", "encoder_layers", "d_model", "n_heads",
+                "n_kv_heads", "head_dim", "d_ff", "vocab_size",
+                "layer_pattern", "n_experts", "n_experts_per_token",
+                "moe_dff", "rnn_width", "window_size", "encoder_seq")}}
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        rec["init_ms"] = sync_s(t0) * 1e3
+        leaves = placement.tree_flatten(params)[0]
+        nbytes = sum(x.numel() * x.element_size() for x in leaves)
+        require(nbytes == spec["param_bytes"]
+                and all(x.device.type == "cuda" for x in leaves),
+                f"{arch}: {nbytes} B of parameters on the card, "
+                f"{spec['param_bytes']} expected")
+        rec["param_bytes"] = nbytes
+        del leaves
+        traffic = family_traffic(
+            np, cfg, FAMILY_BATCH,
+            WHISPER_PROMPT if cfg.is_encoder_decoder else FAMILY_PROMPT, 5)
+        served = params
+        if spec["stored"]:
+            store = CodedObjectStore(CodeSpec.make(K, P), n_nodes=STORE_NODES,
+                                     stripe_symbols=STORE_STRIPE)
+            try:
+                n0 = counted(gfm, circ)
+                t0 = time.perf_counter()
+                stat = store.put_pytree("params", params)
+                rec["put_ms"] = sync_s(t0) * 1e3
+                windows = -(-stat.n_stripes // store.put_tile_stripes)
+                rec["stripes"], rec["put_windows"] = stat.n_stripes, windows
+                rec["put_launches"] = launched(gfm, circ, n0)
+                require(rec["put_launches"] == {"gf_matmul": 0,
+                                                "circulant_encode": windows},
+                        f"{arch}: one encode launch per put window: {rec}")
+                store.fail_node(FAMILY_LOST_NODE)
+                patterns = degraded_patterns(store, "params",
+                                             FAMILY_LOST_NODE)
+                n0 = counted(gfm, circ)
+                t0 = time.perf_counter()
+                if cfg.is_encoder_decoder:
+                    served = _read_coded_params(store, "params")
+                else:
+                    served = ServingEngine.from_coded_store(
+                        model, store, key="params", batch_size=FAMILY_BATCH,
+                        max_len=FAMILY_PROMPT + FAMILY_NEW).params
+                rec["degraded_read_ms"] = sync_s(t0) * 1e3
+                rec["failure_patterns"] = patterns
+                rec["read_launches"] = launched(gfm, circ, n0)
+                require(rec["read_launches"] == {"gf_matmul": patterns,
+                                                 "circulant_encode": 0}
+                        and leaves_equal(served, params),
+                        f"{arch}: the degraded read is one gf_matmul launch "
+                        f"per failure pattern, every leaf equal: {rec}")
+            finally:
+                store.close()
+        # the first serving run warms the card's libraries; the second is
+        # the one timed (from the store-read parameters when stored)
+        first, _ = serve(model, params, cfg, traffic)
+        tokens, rec["serve"] = serve(model, served, cfg, traffic)
+        require(tokens == first, f"{arch}: tokens from the "
+                f"{'store-read' if spec['stored'] else 'same'} parameters "
+                f"equal the first run's")
+        rec["tokens_first"] = tokens[0][:8]
+        # device time by name and busy share of a short generate: a
+        # 256-token prompt and 8 new tokens
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            generate(model, params, cfg, traffic, FAMILY_PROFILE_PROMPT, 8)
+            prof_s = sync_s(t0)
+        rec["profile_generate_8"] = busy_share(torch, prof, prof_s)
+        del served
+        rec["cpu_check"] = card_vs_cpu(model, params, cfg)
+        del params
+        torch.cuda.empty_cache()
+
+        # the reference's known answer, reduced
+        ka_cfg = get_config(arch).reduced(**KA_FAMILY_OVERRIDES.get(arch, {}))
+        ka_params = params_from_numpy(numpy_params(ka_cfg, KA_MODEL_SEED))
+        logits, _ = Model(ka_cfg).prefill(
+            ka_params, to_dev(ka_family_batch(np, ka_cfg), "cuda"),
+            q_chunk=None)
+        got = logits[0, -1, KA_MODEL_SLICE].cpu().numpy()
+        ka_err = float(np.abs(got - np.asarray(KA_FAMILY_LOGITS[arch])).max())
+        require(got.shape == (len(KA_FAMILY_LOGITS[arch]),)
+                and ka_err <= KA_MODEL_ATOL,
+                f"{arch} known answer: max |diff| {ka_err} (tolerance "
+                f"{KA_MODEL_ATOL})")
+        rec["known_answer"] = {"max_abs_err": ka_err,
+                               "tolerance": KA_MODEL_ATOL}
+        rec["host_peak_rss_bytes"] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024
+        rec["seconds"] = time.perf_counter() - t_arch
+        out["configs"][arch] = rec
+        del ka_params, logits
+        torch.cuda.empty_cache()
+    out["launches"] = counted(gfm, circ)
+    require(all(v > 0 for v in out["launches"].values()),
+            f"both kernels ran on the families path: {out['launches']}")
+    return out
+
+
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048   # 2 x 2048 tokens: b*h*s^2 = 2^28, flash
 TRAIN_STEPS = 4             # timed full-width steps
 TRAIN_CPU_SEQ = 64          # card vs CPU: one 1 x 64-token step
@@ -2276,7 +2698,9 @@ def main() -> int:
               "full_payload_mib": 1024})
 
     t0 = time.perf_counter()
-    model_stripes = -(-MODEL_PARAM_BYTES // (n * STORE_STRIPE))
+    model_stripes = [-(-nbytes // (n * STORE_STRIPE)) for nbytes in
+                     [MODEL_PARAM_BYTES] + [f["param_bytes"] for f in
+                                            FAMILIES.values() if f["stored"]]]
     demo_symbols = -(-model_param_bytes(torch, get_config(MODEL_ARCH)
                                         .reduced()) // DEMO_N)
     kern = phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main,
@@ -2352,6 +2776,23 @@ def main() -> int:
           "stripe_symbols": STORE_STRIPE, **model_res,
           "seconds": time.perf_counter() - t0})
 
+    for arch in FAMILIES:
+        full, cut = get_config(arch), family_config(dataclasses, get_config,
+                                                    arch)
+        require(model_param_bytes(torch, cut) == FAMILIES[arch]["param_bytes"],
+                f"the families phase's parameter count of {arch}")
+        emit({"phase": "cut", "model": arch, "reduced": {
+            k: [getattr(full, k), getattr(cut, k)]
+            for k in FAMILIES[arch]["layers"]}})
+    t0 = time.perf_counter()
+    families_res = phase_families(torch, np, gfm, circ)
+    emit({"phase": "families", "ok": True, "card": smi,
+          "code": f"[{n},{K}] GF({P})", "nodes": STORE_NODES,
+          "stripe_symbols": STORE_STRIPE, "lost_node": FAMILY_LOST_NODE,
+          "batch": FAMILY_BATCH, "prompt": FAMILY_PROMPT,
+          "whisper_prompt": WHISPER_PROMPT, "new_tokens": FAMILY_NEW,
+          **families_res, "seconds": time.perf_counter() - t0})
+
     t0 = time.perf_counter()
     train_res = phase_train(torch, np, gfm, circ, TRAIN_STEPS)
     emit({"phase": "train", "ok": True, "card": smi, **train_res,
@@ -2359,7 +2800,8 @@ def main() -> int:
 
     paths = {"main": main_res, "store": store_res, "checkpoint": ckpt_res,
              "serve": serve_res, "cluster": cluster_res, "drills": drill_res,
-             "model": model_res, "train": train_res}
+             "model": model_res, "families": families_res,
+             "train": train_res}
     source = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                             "src/repro/kernels/gf_matmul.py:96", "decode"),
               "circulant_encode": ("src/repro_torch/csrc/circulant_encode.cu",

@@ -1,6 +1,8 @@
-"""Model stack of the port (``repro.models`` in the reference): the dense
-attention + FFN blocks ("ga", "la") and `Model` — its loss (training,
-with the flash backward and per-cycle remat) and its serving path.
+"""Model stack of the port (``repro.models`` in the reference): every
+block kind of the configs registry — dense attention ("ga", "la"), MoE
+("gm"), Griffin RG-LRU ("rg"), xLSTM ("ml", "sl") and the encoder-decoder
+path ("enc" and cross-attention) — and `Model`: its loss (training, with
+the flash backward and per-cycle remat) and its serving path.
 
 Parameters cross between the packages as numpy trees of the reference's
 structure: :func:`params_from_numpy` turns ``jax.device_get(params)`` into
@@ -37,15 +39,23 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     return treedef.unflatten([_leaf_tensor(x).to(device) for x in leaves])
 
 
+def _leaf_numpy(x: torch.Tensor) -> np.ndarray:
+    if x.dtype == torch.bfloat16:           # as ml_dtypes' bfloat16
+        import ml_dtypes
+        return x.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return x.numpy()
+
+
 def numpy_params(cfg, seed: int) -> Any:
     """Parameters of ``cfg`` drawn from ``numpy.random.default_rng(seed)``
     (the port's init scales, truncated normals by rejection), as a tree of
-    numpy float32 arrays with the reference's structure: the same weights
-    on every host, for the reference (``jnp.asarray`` per leaf) and the
-    port (:func:`params_from_numpy`)."""
+    numpy arrays with the reference's structure and dtypes (float32, or
+    ``ml_dtypes.bfloat16`` where ``cfg.param_dtype`` asks for it): the
+    same weights on every host, for the reference (``jnp.asarray`` per
+    leaf) and the port (:func:`params_from_numpy`)."""
     params = Model(cfg).init(np.random.default_rng(seed), device="cpu")
     leaves, treedef = tree_flatten(params)
-    return treedef.unflatten([x.numpy() for x in leaves])
+    return treedef.unflatten([_leaf_numpy(x) for x in leaves])
 
 
 __all__ = ["Model", "params_from_numpy", "numpy_params"]

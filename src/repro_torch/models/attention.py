@@ -1,6 +1,6 @@
 """Attention of the port (``repro.models.attention`` in the reference):
-GQA/MQA/MHA, global and sliding-window, with KV caches (append cache for
-global, ring buffer for windowed layers).
+GQA/MQA/MHA, global and sliding-window, self and cross, with KV caches
+(append cache for global, ring buffer for windowed layers).
 
 Numerics: logits are a bf16 product cast to fp32, softmax in fp32,
 probabilities cast to the values' dtype, values in bf16 — the reference's
@@ -30,9 +30,8 @@ FLASH_MIN_ELEMS = 2 ** 28
 
 # ----------------------------------------------------------------- params
 def init_attention(cfg, gen, *, cross: bool = False, device=None) -> dict:
-    if cross:
-        raise NotImplementedError(
-            "cross-attention (encoder-decoder) is not ported yet: ROADMAP A13")
+    """Projections; qk-norm scales when ``cfg.qk_norm``, except for
+    cross-attention, which has none (as in the reference)."""
     d, h, m, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
         "wq": dense_init(gen, (d, h, hd), device=device),
@@ -41,7 +40,7 @@ def init_attention(cfg, gen, *, cross: bool = False, device=None) -> dict:
         "wo": dense_init(gen, (h, hd, d), scale=(h * hd) ** -0.5,
                          device=device),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_scale"] = torch.ones((hd,), dtype=PARAM_DTYPE, device=device)
         p["k_scale"] = torch.ones((hd,), dtype=PARAM_DTYPE, device=device)
     return p

@@ -1,11 +1,11 @@
 """Dense FFN of the port: SwiGLU (silu), GeGLU (geglu) or plain-GELU MLP
-(gelu), GELU being the tanh approximation as in ``jax.nn.gelu``."""
+(gelu), the activations composed op by op as ``jax.nn``'s are
+(:mod:`.layers`)."""
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from .layers import dense_init, gelu
+from .layers import dense_init, gelu, silu
 
 
 def is_gated(act: str) -> bool:
@@ -26,7 +26,7 @@ def apply_ffn(cfg, params, x: torch.Tensor) -> torch.Tensor:
     h = x @ params["w_in"].to(x.dtype)
     if is_gated(cfg.act):
         g = x @ params["w_gate"].to(x.dtype)
-        act = F.silu if cfg.act == "silu" else gelu
+        act = silu if cfg.act == "silu" else gelu
         h = act(g) * h
     else:
         h = gelu(h)

@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -143,10 +142,45 @@ def positions_to_angles(cfg, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------- activations
+# The reference's jax.nn activations are compositions of elementwise ops,
+# each rounding to its input's dtype; the port composes the same ops in
+# the same order, so on bf16 inputs it rounds where the reference rounds
+# (a fused torch kernel rounds once, and lands a bf16 step away from the
+# reference for a third of the inputs).
+class _Logistic(torch.autograd.Function):
+    """``jax.nn.sigmoid``: 1 / (1 + exp(-x)) op by op, with the
+    reference's derivative g * (ans * (1 - ans)) in its order, which
+    stays finite where exp(-x) overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ans = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, g):
+        (ans,) = ctx.saved_tensors
+        return g * (ans * (1 - ans))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return _Logistic.apply(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x)."""
+    return x * sigmoid(x)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu``'s default: the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
+    """``jax.nn.gelu``'s default, the tanh approximation, op by op with
+    its constants in x's dtype."""
+    c = torch.tensor(np.sqrt(2 / np.pi), dtype=x.dtype, device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    return x * cdf
 
 
 def act_fn(name: str):
-    return {"silu": F.silu, "gelu": gelu, "geglu": gelu}[name]
+    return {"silu": silu, "gelu": gelu, "geglu": gelu}[name]

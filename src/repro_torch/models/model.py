@@ -11,6 +11,7 @@ Batch dict keys:
     tokens (b, s) int            — or inputs_embeds (b, s, d) for [vlm]
     labels (b, s) int            — train only
     positions (b, s) int         — or (3, b, s) for M-RoPE
+    enc_embeds (b, enc_seq, d)   — encoder-decoder only (stub frontend output)
 
 Parameter trees have the reference's structure, leaf names and dtypes, so
 `core.placement` serializes the port's tree to the reference's bytes and
@@ -18,6 +19,7 @@ either package reads parameters the other stored.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import torch
@@ -34,13 +36,6 @@ Params = Any
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _encoder_decoder_unported(cfg) -> None:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet: "
-            f"ROADMAP A13")
-
-
 class Model:
     def __init__(self, cfg):
         self.cfg = cfg
@@ -51,21 +46,33 @@ class Model:
         ``device``, or a numpy ``Generator``), as tensors on ``device``
         (None: the card)."""
         cfg = self.cfg
-        _encoder_decoder_unported(cfg)
         device = resolve_device(device)
         params: dict = {
             "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), device),
             "final_norm": init_norm(cfg, cfg.d_model, device),
-            "stack": tfm.init_stack(cfg, gen, device=device),
+            "stack": tfm.init_stack(cfg, gen, decoder=cfg.is_encoder_decoder,
+                                    device=device),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
                                            device)
+        if cfg.is_encoder_decoder:
+            enc_cfg = self._encoder_cfg()
+            params["encoder"] = {
+                "stack": tfm.init_stack(enc_cfg, gen, device=device),
+                "final_norm": init_norm(enc_cfg, enc_cfg.d_model, device),
+            }
         if cfg.param_dtype != "float32":
             dt = _DTYPES[cfg.param_dtype]
             leaves, treedef = tree_flatten(params)
             params = treedef.unflatten([x.to(dt) for x in leaves])
         return params
+
+    def _encoder_cfg(self):
+        cfg = self.cfg
+        return dataclasses.replace(
+            cfg, n_layers=cfg.encoder_layers, layer_pattern=("enc",),
+            is_encoder_decoder=False)
 
     def head(self, params):
         if self.cfg.tie_embeddings:
@@ -83,6 +90,24 @@ class Model:
         # gather, then cast: the same values as the reference's cast of
         # the whole table before the gather, without a bf16 copy of it
         return params["embed"][batch["tokens"]].to(COMPUTE_DTYPE)
+
+    def _encode(self, params, batch) -> Optional[torch.Tensor]:
+        """The encoder over ``batch["enc_embeds"]``: bidirectional "enc"
+        blocks in train mode (no cache, no remat), positions 0..s-1, then
+        the encoder's final norm."""
+        if not self.cfg.is_encoder_decoder:
+            return None
+        enc_cfg = self._encoder_cfg()
+        x = batch["enc_embeds"].to(COMPUTE_DTYPE)
+        b, s, _ = x.shape
+        pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
+            b, s)
+        cos, sin = positions_to_angles(enc_cfg, pos)
+        ctx = tfm.Ctx(mode="train", cos=cos, sin=sin, q_pos=pos, pos=None,
+                      max_len=s)
+        x, _, _ = tfm.apply_stack(enc_cfg, params["encoder"]["stack"], x, ctx,
+                                  None, remat=False)
+        return apply_norm(enc_cfg, params["encoder"]["final_norm"], x)
 
     # ------------------------------------------------------------ forward
     def _positions(self, batch) -> torch.Tensor:
@@ -104,16 +129,18 @@ class Model:
         ``remat`` recomputes each cycle's activations in the backward
         (mode "train" only)."""
         cfg = self.cfg
-        _encoder_decoder_unported(cfg)
         x = self._embed_inputs(params, batch)
         positions = self._positions(batch)
         # masks use the temporal stream when M-RoPE supplies (t, h, w) streams
         rope_pos = positions[0] if positions.ndim == 3 else positions   # (b,s)
         cos, sin = positions_to_angles(cfg, positions)
+        enc_out = (self._encode(params, batch)
+                   if cfg.is_encoder_decoder and mode != "decode" else None)
         ctx = tfm.Ctx(mode=mode, cos=cos, sin=sin, q_pos=rope_pos,
                       pos=None if pos is None else int(pos), max_len=max_len,
-                      q_chunk=q_chunk)
+                      enc_out=enc_out, q_chunk=q_chunk)
         x, cache, aux = tfm.apply_stack(cfg, params["stack"], x, ctx, cache,
+                                        decoder=cfg.is_encoder_decoder,
                                         remat=remat)
         x = apply_norm(cfg, params["final_norm"], x)
         return x, cache, aux
@@ -148,8 +175,8 @@ class Model:
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_len: int, device=None):
-        _encoder_decoder_unported(self.cfg)
         return tfm.init_stack_cache(self.cfg, batch, max_len,
+                                    decoder=self.cfg.is_encoder_decoder,
                                     device=resolve_device(device))
 
     @torch.inference_mode()

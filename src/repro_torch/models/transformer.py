@@ -14,9 +14,19 @@ with ``remat=True`` each cycle runs under
 ``jax.checkpoint(cycle_body)``): its activations are recomputed in the
 backward instead of kept.
 
-Ported block kinds: "ga" (global attention + dense FFN) and "la"
-(sliding-window attention + dense FFN).  The MoE, recurrent, xLSTM and
-encoder-decoder kinds raise NotImplementedError (ROADMAP A13).
+Block kinds: "ga" / "la" (global / sliding-window attention + dense
+FFN), "gm" (global attention + MoE FFN), "rg" (Griffin RG-LRU + dense
+FFN), "ml" / "sl" (xLSTM mLSTM / sLSTM) and "enc" (bidirectional
+attention + dense FFN, the encoder's).  With ``decoder=True`` an
+encoder-decoder config's attention blocks also get a cross-attention
+sublayer over ``Ctx.enc_out``.
+
+In "train" mode without a cache, full cycles start their recurrent
+blocks from a ZERO state (the reference's ``_train_cache_stub``, whose
+mLSTM / sLSTM stabiliser m is 0), while remainder layers get None and so
+start from ``init_*_cache``'s (m = -1e9).  The stabiliser cancels in
+exact arithmetic but not in rounding (``max(|den|, exp(-m))`` picks its
+branch at another scale), so the port keeps both starts as they are.
 """
 from __future__ import annotations
 
@@ -28,10 +38,10 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import ffn as ffn_mod
+from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import xlstm as xlstm_mod
 from .layers import apply_norm, init_norm
-
-PORTED_KINDS = ("ga", "la")
-UNPORTED_KINDS = ("gm", "rg", "ml", "sl", "enc")
 
 
 @dataclasses.dataclass
@@ -43,19 +53,15 @@ class Ctx:
     q_pos: torch.Tensor             # (b, s) absolute positions of the inputs
     pos: Optional[int]              # decode write offset
     max_len: int                    # global-attn cache capacity (decode)
+    enc_out: Optional[torch.Tensor] = None   # encoder hidden states (enc-dec)
     q_chunk: Optional[int] = None   # prefill attention chunking
 
 
-def _check_kind(cfg, kind: str, decoder: bool = False) -> None:
-    if kind not in PORTED_KINDS + UNPORTED_KINDS:
-        raise ValueError(f"unknown block kind {kind!r}")
-    if kind in UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: ROADMAP A13 (the port "
-            f"runs the kinds {PORTED_KINDS})")
-    if decoder and cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "cross-attention (encoder-decoder) is not ported yet: ROADMAP A13")
+ATTN_KINDS = ("ga", "la", "gm", "enc")
+
+
+def _has_cross(cfg, kind: str, decoder: bool) -> bool:
+    return decoder and cfg.is_encoder_decoder and kind != "enc"
 
 
 def _stack_trees(trees: list) -> Any:
@@ -75,25 +81,70 @@ def _index_tree(tree: Any, i: int) -> Any:
 # ------------------------------------------------------------- block: init
 def init_block(cfg, gen, kind: str, *, decoder: bool = False,
                device=None) -> dict:
-    _check_kind(cfg, kind, decoder)
     d = cfg.d_model
-    return {"norm1": init_norm(cfg, d, device),
-            "attn": attn.init_attention(cfg, gen, device=device),
-            "norm2": init_norm(cfg, d, device),
-            "ffn": ffn_mod.init_ffn(cfg, gen, device=device)}
+    if kind in ATTN_KINDS:
+        p = {"norm1": init_norm(cfg, d, device),
+             "attn": attn.init_attention(cfg, gen, device=device),
+             "norm2": init_norm(cfg, d, device)}
+        if kind == "gm":
+            p["moe"] = moe_mod.init_moe(cfg, gen, device=device)
+        else:
+            p["ffn"] = ffn_mod.init_ffn(cfg, gen, device=device)
+        if _has_cross(cfg, kind, decoder):
+            p["cross_norm"] = init_norm(cfg, d, device)
+            p["cross"] = attn.init_attention(cfg, gen, cross=True,
+                                             device=device)
+        return p
+    if kind == "rg":
+        return {"norm1": init_norm(cfg, d, device),
+                "rglru": rglru_mod.init_rglru_block(cfg, gen, device=device),
+                "norm2": init_norm(cfg, d, device),
+                "ffn": ffn_mod.init_ffn(cfg, gen, device=device)}
+    if kind == "ml":
+        return {"norm1": init_norm(cfg, d, device),
+                "mlstm": xlstm_mod.init_mlstm_block(cfg, gen, device=device)}
+    if kind == "sl":
+        return {"norm1": init_norm(cfg, d, device),
+                "slstm": xlstm_mod.init_slstm_block(cfg, gen, device=device)}
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+_RECURRENT_CACHES = {"rg": rglru_mod.init_rglru_cache,
+                     "ml": xlstm_mod.init_mlstm_cache,
+                     "sl": xlstm_mod.init_slstm_cache}
 
 
 def init_block_cache(cfg, kind: str, batch: int, max_len: int,
                      *, decoder: bool = False, device=None) -> dict:
-    _check_kind(cfg, kind, decoder)
-    if kind == "la":
-        return attn.init_window_cache(cfg, batch, device)
-    return attn.init_global_cache(cfg, batch, max_len, device)
+    if kind in ("ga", "gm", "enc"):
+        c = attn.init_global_cache(cfg, batch, max_len, device)
+    elif kind == "la":
+        c = attn.init_window_cache(cfg, batch, device)
+    elif kind in _RECURRENT_CACHES:
+        c = _RECURRENT_CACHES[kind](cfg, batch, device)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    if _has_cross(cfg, kind, decoder):
+        shape = (batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+        c["ck"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+        c["cv"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+    return c
+
+
+def _train_cache_stub(cfg, kind: str, batch: int, device):
+    """A full cycle's initial state of one block in train mode without a
+    cache: zeros of the recurrent kinds' cache leaves (m included), None
+    for the attention kinds, whose train path reads no cache."""
+    if kind not in _RECURRENT_CACHES:
+        return None
+    return {k: torch.zeros_like(v) for k, v in
+            _RECURRENT_CACHES[kind](cfg, batch, device).items()}
 
 
 # ------------------------------------------------------------ block: apply
 def _self_attention_sublayer(cfg, p, x, kind, ctx: Ctx, cache):
     h = apply_norm(cfg, p["norm1"], x)
+    causal = kind != "enc"
     window = cfg.window_size if kind == "la" else None
     q = attn.project_q(cfg, p["attn"], h, ctx.cos, ctx.sin)
     k_new, v_new = attn.project_kv(cfg, p["attn"], h, ctx.cos, ctx.sin)
@@ -122,11 +173,11 @@ def _self_attention_sublayer(cfg, p, x, kind, ctx: Ctx, cache):
             k_pos = t[None].expand(b, ctx.max_len)
             k_valid = (t <= ctx.pos)[None].expand(b, ctx.max_len)
         o = attn.attention(cfg, q, new_cache["k"], new_cache["v"],
-                           q_pos=q_pos, k_pos=k_pos, causal=True,
+                           q_pos=q_pos, k_pos=k_pos, causal=causal,
                            window=window, k_valid=k_valid)
     else:
         o = attn.attention(cfg, q, k_new, v_new, q_pos=ctx.q_pos,
-                           k_pos=ctx.q_pos, causal=True, window=window,
+                           k_pos=ctx.q_pos, causal=causal, window=window,
                            q_chunk=ctx.q_chunk)
         if ctx.mode == "prefill" and cache is not None:
             if kind == "la":
@@ -140,15 +191,59 @@ def _self_attention_sublayer(cfg, p, x, kind, ctx: Ctx, cache):
     return x + attn.out_proj(p["attn"], o), new_cache
 
 
+def _cross_attention_sublayer(cfg, p, x, ctx: Ctx, cache):
+    """Attention of the decoder's queries over the encoder's output: no
+    rope, not causal, query positions 0.  Prefill projects the encoder's
+    keys and values into the cache's ``ck`` / ``cv``; decode reads them."""
+    h = apply_norm(cfg, p["cross_norm"], x)
+    q = attn.project_q(cfg, p["cross"], h, None, None)   # no rope on cross
+    new_cache = cache
+    if ctx.mode == "decode":
+        ck, cv = cache["ck"], cache["cv"]
+    else:
+        ck, cv = attn.project_kv(cfg, p["cross"], ctx.enc_out, None, None)
+        if ctx.mode == "prefill" and cache is not None:
+            new_cache = {**cache, "ck": ck.to(cache["ck"].dtype),
+                         "cv": cv.to(cache["cv"].dtype)}
+    b, t = x.shape[0], ck.shape[1]
+    k_pos = torch.arange(t, dtype=torch.int32, device=x.device)[None].expand(
+        b, t)
+    o = attn.attention(cfg, q, ck, cv, q_pos=torch.zeros_like(ctx.q_pos),
+                       k_pos=k_pos, causal=False, window=None,
+                       q_chunk=ctx.q_chunk)
+    return x + attn.out_proj(p["cross"], o), new_cache
+
+
 def apply_block(cfg, p, kind: str, x, ctx: Ctx, cache=None,
                 *, decoder: bool = False):
-    """Returns (x, new_cache, aux); aux is 0 for the ported kinds."""
-    _check_kind(cfg, kind, decoder)
-    x, cache = _self_attention_sublayer(cfg, p, x, kind, ctx, cache)
-    h = apply_norm(cfg, p["norm2"], x)
-    f = ffn_mod.apply_ffn(cfg, p["ffn"], h)
-    return x + f, cache, torch.zeros((), dtype=torch.float32,
-                                     device=x.device)
+    """Returns (x, new_cache, aux); aux is the MoE's load-balancing loss
+    for "gm" and 0 otherwise."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in ATTN_KINDS:
+        x, cache = _self_attention_sublayer(cfg, p, x, kind, ctx, cache)
+        if _has_cross(cfg, kind, decoder):
+            x, cache = _cross_attention_sublayer(cfg, p, x, ctx, cache)
+        h = apply_norm(cfg, p["norm2"], x)
+        if kind == "gm":
+            f, aux = moe_mod.apply_moe(cfg, p["moe"], h)
+        else:
+            f = ffn_mod.apply_ffn(cfg, p["ffn"], h)
+        return x + f, cache, aux
+    if kind == "rg":
+        h = apply_norm(cfg, p["norm1"], x)
+        o, new_rec = rglru_mod.apply_rglru_block(cfg, p["rglru"], h,
+                                                 cache=cache, pos=ctx.pos)
+        x = x + o
+        h2 = apply_norm(cfg, p["norm2"], x)
+        return x + ffn_mod.apply_ffn(cfg, p["ffn"], h2), new_rec, aux
+    if kind in ("ml", "sl"):
+        h = apply_norm(cfg, p["norm1"], x)
+        apply = (xlstm_mod.apply_mlstm_block if kind == "ml"
+                 else xlstm_mod.apply_slstm_block)
+        o, new_state = apply(cfg, p["mlstm" if kind == "ml" else "slstm"], h,
+                             cache=cache, pos=ctx.pos)
+        return x + o, new_state, aux
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 # ----------------------------------------------------------- stack: init
@@ -170,14 +265,19 @@ def init_stack(cfg, gen, *, decoder: bool = False, device=None) -> dict:
 
 def init_stack_cache(cfg, batch: int, max_len: int, *, decoder: bool = False,
                      device=None) -> dict:
+    """The stack's caches.  As in the reference, every leaf of the full
+    cycles' stacked caches is ZERO (an mLSTM / sLSTM stabiliser m
+    included), while remainder layers get ``init_block_cache``'s values
+    (m = -1e9)."""
     n_cycles, rem = cfg.cycles()
     pattern = cfg.layer_pattern
     cache: dict = {}
     if n_cycles > 0:
         cache["cycles"] = tuple(
-            _stack_trees([init_block_cache(cfg, kind, batch, max_len,
-                                           decoder=decoder, device=device)
-                          for _ in range(n_cycles)])
+            {k: v.new_zeros((n_cycles,) + tuple(v.shape))
+             for k, v in init_block_cache(cfg, kind, batch, max_len,
+                                          decoder=decoder,
+                                          device=device).items()}
             for kind in pattern)
     for r in range(rem):
         cache[f"rem_{r}"] = init_block_cache(cfg, pattern[r], batch, max_len,
@@ -197,7 +297,10 @@ def apply_stack(cfg, params: dict, x, ctx: Ctx, cache: Optional[dict] = None,
     def cycle(xc, aux, c: int):
         caches = []
         for j, kind in enumerate(pattern):
-            cj = None if cache is None else _index_tree(cache["cycles"][j], c)
+            if cache is None:   # train: recurrent kinds start from zeros
+                cj = _train_cache_stub(cfg, kind, x.shape[0], x.device)
+            else:
+                cj = _index_tree(cache["cycles"][j], c)
             xc, cj_new, a = apply_block(
                 cfg, _index_tree(params["cycles"][j], c), kind, xc, ctx, cj,
                 decoder=decoder)

@@ -477,6 +477,70 @@ def test_model_on_card_matches_cpu(cuda, arch):
                                    max_len=44)
 
 
+FAMILY_ARCHS = ["granite-moe-1b-a400m", "arctic-480b", "recurrentgemma-2b",
+                "xlstm-1.3b", "whisper-medium"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_on_card_matches_cpu(cuda, arch):
+    """The block kinds beyond dense attention, reduced: prefill and three
+    decode steps on the card against the CPU plain path on the same
+    weights (and, for whisper, the same frame embeddings), within 0.125;
+    greedy tokens equal wherever the CPU's top-2 margin exceeds 0.25.  An
+    MoE runs dropless, so a near-tie routed differently moves one token's
+    share of one expert and nothing else."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, numpy_params, params_from_numpy
+    cfg = get_config(arch).reduced()
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=1e9)
+    tree = numpy_params(cfg, 0)
+    model = Model(cfg)
+    on_card, on_cpu = params_from_numpy(tree), params_from_numpy(
+        tree, device="cpu")
+    tok = rand((2, 32), cfg.vocab_size, 1)
+    bc, bh = {"tokens": on(cuda, tok)}, {"tokens": torch.from_numpy(tok)}
+    if cfg.is_encoder_decoder:
+        frames = (np.random.default_rng(2).standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32)
+        bc["enc_embeds"], bh["enc_embeds"] = on(cuda, frames), \
+            torch.from_numpy(frames)
+    lc, cc = model.prefill(on_card, bc, max_len=36)
+    lh, ch = model.prefill(on_cpu, bh, max_len=36)
+    for t in range(4):
+        got, want = lc.cpu().numpy(), lh.numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=0.125)
+        top2 = np.sort(want, -1)[..., -2:]
+        sure = top2[..., 1] - top2[..., 0] > 0.25
+        np.testing.assert_array_equal(got.argmax(-1)[sure],
+                                      want.argmax(-1)[sure])
+        nxt = want[:, -1].argmax(-1)[:, None].astype(np.int32)
+        lc, cc = model.decode_step(on_card, cc, on(cuda, nxt), 32 + t,
+                                   max_len=36)
+        lh, ch = model.decode_step(on_cpu, ch, torch.from_numpy(nxt), 32 + t,
+                                   max_len=36)
+
+
+def test_moe_routing_on_card_matches_cpu(cuda):
+    """Routing on identical fp32 logits with exact ties (at and across
+    the top-k boundary): the card's stable sort picks the CPU's experts
+    in the CPU's order, so queue positions and kept choices are equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-1b-a400m")          # 32 experts, top 8
+    rng = np.random.default_rng(3)
+    logits = (rng.integers(-6, 7, (4, 1024, 32)) / 4.0).astype(np.float32)
+    logits[0, :8] = 0.0                                # all 32 tied
+    cap = moe._capacity(1024, cfg)
+    got = moe.route(cfg, on(cuda, logits), cap)
+    want = moe.route(cfg, torch.from_numpy(logits), cap)
+    for key in ("gate_idx", "pos_in_expert", "keep"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert got["gate_idx"][0, 0].tolist() == list(range(8))
+    assert not bool(want["keep"].all())                # capacity drops
+
+
 def test_degraded_param_reload_on_card_is_bit_equal(cuda):
     """Parameters put into a card store and served; a node lost, the
     reload decodes on the card (gf_matmul launches) into leaves bit-equal

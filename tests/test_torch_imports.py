@@ -32,7 +32,9 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.serve.engine", "repro_torch.optim.adamw",
             "repro_torch.optim.compression", "repro_torch.data.pipeline",
             "repro_torch.launch.steps", "repro_torch.train.loop",
-            "repro_torch.train.tiny_lm"} <= set(mods)
+            "repro_torch.train.tiny_lm", "repro_torch.models.moe",
+            "repro_torch.models.rglru", "repro_torch.models.xlstm",
+            "repro_torch.models.frontend"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

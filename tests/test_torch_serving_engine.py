@@ -291,3 +291,58 @@ def test_model_known_answer_pinned():
                                  q_chunk=None)
     np.testing.assert_allclose(tl[0, -1, chip_smoke.KA_MODEL_SLICE].numpy(),
                                want, rtol=0, atol=chip_smoke.KA_MODEL_ATOL)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "arctic-480b",
+                                  "recurrentgemma-2b", "xlstm-1.3b",
+                                  "whisper-medium"])
+def test_reference_store_family_params_served_by_port(arch):
+    """One reduced config of each family beyond dense attention: the
+    reference's parameters put by its object store, read through the
+    port's (``store_from_numpy``) healthy and with a node lost, bit-equal
+    to the tree carried across directly, and served: greedy tokens from
+    ``ServingEngine``, or for whisper a prefill and a decode step over
+    frame embeddings, equal to those from the directly carried tree."""
+    rcfg, tcfg = rget_config(arch).reduced(), tget_config(arch).reduced()
+    rparams = RModel(rcfg).init(jax.random.PRNGKey(3))
+    direct = params_from_numpy(jax.device_get(rparams), device="cpu")
+    ref = rstore.CodedObjectStore(RSpec.make(4, 257), n_nodes=10,
+                                  stripe_symbols=1 << 12)
+    ref.put_pytree("params", rparams)
+    st = ref.stat("params")
+    ttd = tplace.tree_flatten(direct)[1]
+    assert str(ttd) == str(st.meta["treedef"])
+    stats = [{**{f.name: getattr(st, f.name)
+                 for f in dataclasses.fields(st)},
+              "code_class": st.code_class.to_meta(),
+              "meta": {**st.meta, "treedef": ttd}}]
+    port = tstore.store_from_numpy(
+        TSpec.make(4, 257), ref._shares, stats, n_nodes=10,
+        n_racks=ref.layout.n_racks, stripe_symbols=1 << 12, device="cpu")
+    model = TModel(tcfg)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, tcfg.vocab_size, (2, 16)).astype(np.int32)
+    frames = torch.from_numpy((rng.standard_normal(
+        (2, tcfg.encoder_seq, tcfg.d_model)) * 0.02).astype(np.float32))
+
+    def serve(params):
+        if not tcfg.is_encoder_decoder:
+            return TEngine(model, params, batch_size=2,
+                           max_len=32).generate(prompts, 4)
+        # the reference's engine takes token prompts only: whisper is
+        # served through Model.prefill / decode_step
+        batch = {"tokens": torch.from_numpy(prompts), "enc_embeds": frames}
+        logits, cache = model.prefill(params, batch, max_len=20)
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        logits, _ = model.decode_step(params, cache, tok, 16, max_len=20)
+        return np.concatenate([tok.numpy(), logits[:, -1].argmax(
+            -1)[:, None].numpy()], 1)
+
+    want = serve(direct)
+    for lost in ((), (2,)):
+        for node in lost:
+            port.fail_node(node)
+        got = TEngine.from_coded_store(model, port, key="params",
+                                       batch_size=2, max_len=32).params
+        assert leaves_equal(got, direct), lost
+        np.testing.assert_array_equal(serve(got), want)
