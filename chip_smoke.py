@@ -7,7 +7,7 @@ Run from the root of a checkout:
                           [--ckpt-mib 512] [--serve-mib 256]
 
 It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
-``build/kernels/`` and runs thirteen phases, each printing one JSON line:
+``build/kernels/`` and runs fourteen phases, each printing one JSON line:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    both kernels, one nvcc per source, started together;
@@ -19,7 +19,8 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             store path's (store_matmul_shapes) and the checkpoint, serve
             and cluster paths' shapes (durability_shapes) and the model
             and families paths' (model_store_shapes for each stored
-            parameter tree, demo_shapes);
+            parameter tree, demo_shapes), and the shard path's column
+            windows (read and written in place through the row pitch);
             plus the exhaustive check of the kernel's Barrett fold over
             every uint32 value at p in {5, 257, 46337};
 4. main     the port's main path at the repo's production width, [16, 8]
@@ -82,7 +83,19 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             down;
 10. drills  every crash-consistency drill of the port on the card, at the
             reference's own sizes: passed, bit-exact, zero orphans;
-11. model   qwen3-4b at full width, depth cut to 2 of 36 layers (a "cut"
+11. shard   the stream-axis mesh: the planner's circulant_encode (16,S),
+            decode (16,16), regenerate (2,9) and regenerate_batch F=4 at
+            the main path's S over meshes of 1, 2, 4 and 8 shards on one
+            card (and over the distinct cards where there are several),
+            each bit-equal to the unsharded planner with one launch per
+            shard, wall and device ms per mesh; the store and checkpoint
+            known answers unsharded and under a mesh of 4 (both timed);
+            ring_encode over 16 nodes on the int32 and byte wires equal to
+            circulant_encode, 8 blocks a link; int8_ring_mean over four
+            float32 rows of qwen3-4b's embedding (151936 x 2560) equal to
+            its plain composition (max |diff| 0) and within 10 x the int8
+            scale of the true mean;
+12. model   qwen3-4b at full width, depth cut to 2 of 36 layers (a "cut"
             line says so), its 3.9 GB of float32 parameters drawn on the
             card from a seed: put into a [16, 8] store on 20 nodes (one
             circulant_encode launch per window), read by
@@ -96,7 +109,7 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             0.125; serve_demo.py's rack kill on the card, bit-exact, and
             its repair.  Wall ms, prefill ms, decode ms a token, tokens/s,
             launches, peak device memory, the host's peak resident size;
-12. families
+13. families
             the registry's other block kinds at their published widths,
             only depth cut ("cut" lines): granite-moe-1b-a400m (MoE, 2 of
             24 layers) and whisper-medium (encoder-decoder, 2 + 2 of 24 +
@@ -115,7 +128,7 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             each family's known answer (KA_FAMILY_LOGITS).  Put and
             degraded-read ms, warm prefill ms, decode ms a token,
             tokens/s, peak device memory, the host's peak resident size;
-13. train   qwen3-4b again (2 of 36 layers, float32 master parameters
+14. train   qwen3-4b again (2 of 36 layers, float32 master parameters
             drawn on the card) trained by make_train_step with
             AdamWConfig() for 4 steps of 2 x 2048 batch_at tokens under
             deterministic algorithms: each step's wall ms (the first
@@ -460,6 +473,38 @@ def phase_kernels(torch, gfm, circ, ref, fold_mismatches, s_main: int,
         cmp("gf_matmul", gfm(a, srcs, P), ref.gf_matmul_ref(a, srcs, P),
             f"main a{a_shape} sources {src_shapes}")
         del a, srcs
+    # the shard path's windows (phase shard, mesh of 8): each kernel reads
+    # a column window of the main path's operands and writes a window of
+    # a larger output through its row pitch; the first and the last
+    # shard, at S and at a ragged S - 5, nothing outside written
+    for s_total in (s_main, s_main - 5):
+        e = -(-s_total // 8)
+        for lo in (0, 7 * e):
+            hi = min(lo + e, s_total)
+            what = f"shard window [{lo},{hi}) of {s_total}"
+            d = rnd((n, s_total), P)
+            out = torch.full((n, s_total), -1, dtype=torch.int32, device=dev)
+            circ(d[:, lo:hi], spec.c, P, out=out[:, lo:hi])
+            require(not bool(out[:, :lo].ne(-1).any()
+                             or out[:, hi:].ne(-1).any()),
+                    f"circulant_encode wrote only its {what}")
+            cmp("circulant_encode", out[:, lo:hi],
+                ref.circulant_encode_ref(d[:, lo:hi], spec.c, P), what)
+            del d, out
+            for a_shape, src_shapes in main_matmul_shapes(n, s_total):
+                a = rnd(a_shape, P)
+                srcs = tuple(rnd(x, P)[..., lo:hi] for x in src_shapes)
+                lead = src_shapes[0][:-2] + (a_shape[0], s_total)
+                out = torch.full(lead, -1, dtype=torch.int32, device=dev)
+                gfm(a, srcs, P, out=out[..., lo:hi])
+                require(not bool(out[..., :lo].ne(-1).any()
+                                 or out[..., hi:].ne(-1).any()),
+                        f"gf_matmul a{a_shape} wrote only its {what}")
+                cmp("gf_matmul", out[..., lo:hi],
+                    ref.gf_matmul_ref(a, srcs, P),
+                    f"a{a_shape} sources {src_shapes}, {what}")
+                del a, srcs, out
+            torch.cuda.empty_cache()
     # the store path's own shapes (phase store)
     for s in (STORE_STRIPE, STORE_PUT_TILE * STORE_STRIPE):
         d = rnd((n, s), P)
@@ -874,6 +919,16 @@ STORE_REPAIR_TILE = 64      # and repair_tile_tasks
 PM_CLASS = ("product-matrix", 16, 8, 14)
 
 
+def store_objects(np, store_mib: int) -> tuple:
+    """The store phase's STORE_OBJECTS random objects of store_mib MiB in
+    all (seed 0), and the generator that made them."""
+    obj_bytes = (store_mib << 20) // STORE_OBJECTS
+    rng = np.random.default_rng(0)
+    return rng, {f"obj{i:02d}": rng.integers(0, 256, size=obj_bytes,
+                                             dtype=np.uint8).tobytes()
+                 for i in range(STORE_OBJECTS)}
+
+
 def store_rehearsal(CodeSpec, Store, Scheduler, CodeClass, **store_kw,
                     ) -> str:
     """The store known-answer workload, on whichever package's classes it
@@ -958,6 +1013,28 @@ def ckpt_geometry(ckpt_mib: int) -> dict:
     return {"rows": rows, "bytes": nbytes, "s_block": s_block,
             "tile": SAVE_TILE_SYMBOLS, "tiles": tiles,
             "tail": s_block - (tiles - 1) * SAVE_TILE_SYMBOLS}
+
+
+def ckpt_state(torch, geo: dict) -> dict:
+    """The checkpoint phase's training state on the card, from a seeded
+    torch.Generator: a bf16 weight stack, two float32 moment stacks of
+    (geo["rows"], CKPT_COLS) and an int64 step."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def stack(dtype):
+        return torch.randn((geo["rows"], CKPT_COLS), generator=gen,
+                           device="cuda").to(dtype)
+
+    return {"params": {"w": stack(torch.bfloat16)},
+            "opt": {"mu": stack(torch.float32),
+                    "nu": stack(torch.float32).abs_(),
+                    "step": torch.tensor(1000, dtype=torch.int64,
+                                         device="cuda")}}
+
+
+def ckpt_leaves(state) -> list:
+    return [state["params"]["w"], state["opt"]["mu"], state["opt"]["nu"],
+            state["opt"]["step"]]
 
 
 def ckpt_known_state(np) -> dict:
@@ -1057,10 +1134,7 @@ def phase_store(torch, np, gfm, circ, plan_mod, store_mib: int) -> dict:
     from repro_torch.store import CodedObjectStore, RepairScheduler
     spec = CodeSpec.make(K, P)
     obj_bytes = (store_mib << 20) // STORE_OBJECTS
-    rng = np.random.default_rng(0)
-    objs = {f"obj{i:02d}": rng.integers(0, 256, size=obj_bytes,
-                                        dtype=np.uint8).tobytes()
-            for i in range(STORE_OBJECTS)}
+    rng, objs = store_objects(np, store_mib)
     payload = sum(len(v) for v in objs.values())
     arr = rng.standard_normal((1000, 37)).astype(np.float32)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1281,19 +1355,8 @@ def phase_checkpoint(torch, np, gfm, circ, ckpt_mib: int) -> dict:
     spec = CodeSpec.make(K, P)
     n = spec.n
     geo = ckpt_geometry(ckpt_mib)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def stack(dtype):
-        return torch.randn((geo["rows"], CKPT_COLS), generator=gen,
-                           device="cuda").to(dtype)
-
-    state = {"params": {"w": stack(torch.bfloat16)},
-             "opt": {"mu": stack(torch.float32),
-                     "nu": stack(torch.float32).abs_(),
-                     "step": torch.tensor(1000, dtype=torch.int64,
-                                          device="cuda")}}
-    leaves = [state["params"]["w"], state["opt"]["mu"], state["opt"]["nu"],
-              state["opt"]["step"]]
+    state = ckpt_state(torch, geo)
+    leaves = ckpt_leaves(state)
     nbytes = sum(x.numel() * x.element_size() for x in leaves)
     s_block, tiles = geo["s_block"], geo["tiles"]
     require(nbytes == geo["bytes"], "state bytes as ckpt_geometry says")
@@ -1302,11 +1365,8 @@ def phase_checkpoint(torch, np, gfm, circ, ckpt_mib: int) -> dict:
     profiles: dict = {}
 
     def equal(a, b) -> bool:
-        return all(torch.equal(x, y) for x, y in zip(
-            [a["params"]["w"], a["opt"]["mu"], a["opt"]["nu"],
-             a["opt"]["step"]],
-            [b["params"]["w"], b["opt"]["mu"], b["opt"]["nu"],
-             b["opt"]["step"]]))
+        return all(torch.equal(x, y)
+                   for x, y in zip(ckpt_leaves(a), ckpt_leaves(b)))
 
     def step(name, fn, nbytes=nbytes):
         torch.cuda.synchronize()
@@ -1669,6 +1729,340 @@ def phase_drills(torch, gfm, circ) -> dict:
             f"both kernels ran in the drills: {launches}")
     return {"launches": launches, "seconds": dt,
             "drills": [r.to_json() for r in results]}
+
+
+# ---------------------------------------------------------------- shard path
+SHARD_MESHES = (1, 2, 4, 8)         # shards over [cuda:0] * m
+SHARD_STORE_MESH = 4                # use_mesh of the store and checkpoint
+RING_MEAN_N = 4                     # int8_ring_mean's ring
+RING_MEAN_ROW = (151936, 2560)      # qwen3-4b's largest leaf, the embedding
+RING_MEAN_BOUND = 10                # x the int8 scale: the reference test's
+
+
+def ring_mean_plain(torch, quantize, dequantize, x):
+    """int8_ring_mean's algebra as one plain loop over hops on one device:
+    the reduce-scatter re-quantized each hop (j -> j+1), then the int8
+    all-gather; returns the gathered mean (one row)."""
+    n = x.shape[0]
+    flat = x.reshape(n, -1)
+    size = flat.shape[1]
+    pad = (-size) % n
+    chunks = [torch.nn.functional.pad(flat[i], (0, pad)).view(n, -1)
+              for i in range(n)]
+    accs = [chunks[i][i] for i in range(n)]
+    for t in range(n - 1):
+        wire = [quantize(a) for a in accs]
+        accs = [dequantize(*wire[(i - 1) % n]) + chunks[i][(i - t - 1) % n]
+                for i in range(n)]
+    done = [quantize(a / torch.full((), n, device=a.device)) for a in accs]
+    order = [(c - 1) % n for c in range(n)]
+    q = torch.stack([done[j][0] for j in order])
+    sc = torch.stack([done[j][1] for j in order])
+    return dequantize(q, sc[:, None]).reshape(-1)[:size].view(x.shape[1:])
+
+
+def shard_at_scale(torch, np, gfm, circ, mesh, store_mib: int,
+                   ckpt_mib: int) -> dict:
+    """The store phase's workload (its objects, nodes and stripe size) and
+    the checkpoint phase's state at full size, on an unsharded twin and
+    under ``mesh``, each step run on both sides back to back, the side
+    that goes first alternating from step to step: put, put again, the
+    rack-0 degraded get and its drain; save, the node-5 regenerate and the
+    2/9/14 reconstruct restores.  The sharded side launches m times the
+    unsharded side's kernels (asserted), both read back bit-exact, and
+    the two saves' step directories are equal."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import MSRCheckpointer
+    from repro_torch.core.circulant import CodeSpec
+    from repro_torch.sharding.mesh import use_mesh
+    from repro_torch.store import CodedObjectStore, RepairScheduler
+    spec = CodeSpec.make(K, P)
+    m = mesh.size
+    rows: dict = {"store": {}, "checkpoint": {}}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        n0 = counted(gfm, circ)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, launched(gfm, circ, n0)
+
+    def pair(group, name, mesh_first: bool, fn):
+        """``fn(side)`` on both sides, in the order given; the sharded
+        side must launch m times what the unsharded side does."""
+        order = ("mesh", "unsharded") if mesh_first else \
+            ("unsharded", "mesh")
+        res, ms, n = {}, {}, {}
+        for side in order:
+            res[side], ms[side], n[side] = timed(lambda: fn(side))
+        require(n["mesh"] == {k: m * v for k, v in n["unsharded"].items()}
+                and sum(n["unsharded"].values()) > 0,
+                f"{group} {name}: {m} launches under the mesh for each "
+                f"unsharded one: {n}")
+        rows[group][name] = {"unsharded_ms": ms["unsharded"],
+                             "mesh_ms": ms["mesh"],
+                             "ratio": ms["mesh"] / ms["unsharded"],
+                             "first": order[0],
+                             "launches_unsharded": n["unsharded"]}
+        return res
+
+    _, objs = store_objects(np, store_mib)
+    stores, scheds = {}, {}
+    for side, msh in (("unsharded", None), ("mesh", mesh)):
+        with use_mesh(msh):
+            st = stores[side] = CodedObjectStore(
+                spec, n_nodes=STORE_NODES, stripe_symbols=STORE_STRIPE)
+        require(st.code.mesh is msh and st.code.backend_name == "cuda",
+                f"the {side} store's code on the card")
+        scheds[side] = RepairScheduler(st)
+        st.subscribe(scheds[side].on_event)
+
+    def put_all(side):
+        for k, v in objs.items():
+            stores[side].put(k, v)
+
+    def read_back(side):
+        return all(stores[side].get(k) == v for k, v in objs.items())
+
+    pair("store", "put", True, put_all)
+    pair("store", "put_again", False, put_all)
+    rack0 = list(stores["mesh"].layout.nodes_in(0))
+    for st in stores.values():
+        for v in rack0:
+            st.fail_node(v)
+    ok = pair("store", "degraded_get_rack0", True, read_back)
+    require(all(ok.values()), "degraded gets bit-exact on both sides")
+    for st in stores.values():
+        for v in rack0:
+            st.replace_node(v)
+    reps = pair("store", "drain_rack0", False,
+                lambda side: scheds[side].drain_all())
+    require(reps["mesh"].decode_calls == reps["unsharded"].decode_calls > 0,
+            f"both drains decode alike: {reps}")
+    require(read_back("mesh"), "objects bit-exact after the sharded drain")
+    for st in stores.values():
+        st.close()
+    del objs, stores, scheds
+
+    geo = ckpt_geometry(ckpt_mib)
+    state = ckpt_state(torch, geo)
+    root = Path(tempfile.mkdtemp(prefix="msr_shard_ckpt_"))
+    try:
+        cks = {"unsharded": MSRCheckpointer(root / "unsharded", spec),
+               "mesh": MSRCheckpointer(root / "mesh", spec, mesh=mesh)}
+        require(cks["mesh"].code.mesh is mesh
+                and cks["mesh"].device.type == "cuda",
+                "the checkpointer's code is sharded over the mesh")
+        pair("checkpoint", "save", True, lambda side: cks[side].save(1, state))
+        require(ckpt_digest(cks["mesh"]._step_dir(1))
+                == ckpt_digest(cks["unsharded"]._step_dir(1)),
+                "the sharded save writes the unsharded save's step files")
+        for name, failed, path, mesh_first in (
+                ("restore_regenerate_node5", [5], "regenerate", False),
+                ("restore_reconstruct_2_9_14", [2, 9, 14], "reconstruct",
+                 True)):
+            for ck in cks.values():
+                for f in failed:
+                    for file in ck._node_files(1, f):
+                        file.unlink()
+            got = pair("checkpoint", name, mesh_first,
+                       lambda side: cks[side].restore(
+                           state, 1, failed_nodes=failed))
+            require(all(rep.path == path and all(
+                torch.equal(a, b) for a, b in zip(ckpt_leaves(tree),
+                                                  ckpt_leaves(state)))
+                for tree, rep in got.values()),
+                f"{path} restores bit-exact on both sides")
+            del got
+        for ck in cks.values():
+            ck.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_shard(torch, np, gfm, circ, plan_mod, s: int, store_mib: int,
+                ckpt_mib: int) -> dict:
+    """The stream-axis mesh on the card, kernel counts set to 0 just
+    before and read just after: the planner's four main-path ops at S
+    symbols per block over meshes of SHARD_MESHES shards on one card (and
+    over the distinct cards where the host has several), each bit-equal
+    to the unsharded planner with one launch per shard; the store and
+    checkpoint known answers under a mesh of SHARD_STORE_MESH; the ring
+    encode over 16 nodes on both wires against circulant_encode, k
+    blocks a link; int8_ring_mean over RING_MEAN_N rows of RING_MEAN_ROW
+    against its plain composition and the true mean; the store and
+    checkpoint phases' workloads at full size under that mesh beside
+    unsharded twins (:func:`shard_at_scale`)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.msr_checkpoint import MSRCheckpointer
+    from repro_torch.codes import CodeClass
+    from repro_torch.core.circulant import CodeSpec
+    from repro_torch.core.repair import build_repair_matrix
+    from repro_torch.core.ring import LinkTraffic, ring_encode
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_host_mesh, make_storage_mesh
+    from repro_torch.optim.compression import (dequantize, int8_ring_mean,
+                                               quantize)
+    from repro_torch.sharding.mesh import StreamMesh, use_mesh
+    from repro_torch.store import CodedObjectStore, RepairScheduler
+    spec = CodeSpec.make(K, P)
+    n = spec.n
+    dev0 = torch.device("cuda", torch.cuda.current_device())
+    be = dispatch.get("cuda")
+    gfm.launches = 0
+    circ.launches = 0
+    plain = plan_mod.get_planner(be, P)
+    require(plan_mod.get_planner(be, P, mesh=1) is plain,
+            "get_planner(mesh=1) is the unsharded planner")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(shape, hi=P):
+        return torch.randint(0, hi, shape, generator=gen, dtype=torch.int32,
+                             device="cuda")
+
+    rmat = build_repair_matrix(spec)
+    data = rnd((n, s))
+    x = {"data": data, "mat": rnd((n, n)), "rp": data[n - 1],
+         "nd": data[:K], "rps": data[K:K + 4], "nds": rnd((4, K, s))}
+    ops = {"circulant_encode": (circ, lambda pl: pl.circulant_encode(
+               x["data"], spec.c)),
+           "decode": (gfm, lambda pl: pl.matmul(x["mat"], x["data"])),
+           "regenerate": (gfm, lambda pl: pl.regenerate(rmat, x["rp"],
+                                                        x["nd"])),
+           "regenerate_batch": (gfm, lambda pl: pl.regenerate_batch(
+               rmat, x["rps"], x["nds"]))}
+    meshes = [(m, StreamMesh(m, devices=[dev0] * m)) for m in SHARD_MESHES]
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        meshes.append((f"{cards} cards", StreamMesh(cards)))
+    rows = []
+    for name, (kern, op) in ops.items():
+        want = op(plain).device()
+        for label, mesh in meshes:
+            pl = plan_mod.get_planner(be, P, mesh=mesh)
+            require((pl is plain) == (mesh.size == 1),
+                    f"mesh {label}: its own planner, 1 shard the plain one")
+            op(pl).device()                      # warm: plan key, buffers
+            walls, devs = [], []
+            for _ in range(3):
+                n0 = kern.launches
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                e0.record()
+                got = op(pl).device()
+                e1.record()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                devs.append(e0.elapsed_time(e1))
+                require(kern.launches - n0 == mesh.size,
+                        f"{name} over mesh {label}: {kern.launches - n0} "
+                        f"launches, one per shard ({mesh.size})")
+            require(torch.equal(got, want),
+                    f"{name} over mesh {label} bit-equal to unsharded")
+            rows.append({"op": name, "mesh": label, "shards": mesh.size,
+                         "wall_ms": statistics.median(walls),
+                         "device_ms": statistics.median(devs)})
+            del got
+        del want
+    del x, data
+    torch.cuda.empty_cache()
+
+    # store and checkpoint known answers, unsharded and under a mesh: a
+    # correctness check at the reference's size (timed at full size in
+    # shard_at_scale)
+    mesh4 = StreamMesh(SHARD_STORE_MESH, devices=[dev0] * SHARD_STORE_MESH)
+    known = {}
+    for label, mesh in (("unsharded", None), ("mesh", mesh4)):
+        with use_mesh(mesh):
+            digest = store_rehearsal(CodeSpec, CodedObjectStore,
+                                     RepairScheduler, CodeClass)
+        known[f"store_{label}"] = digest
+        require(digest == KA_STORE_SHA256,
+                f"store known answer {label}: {digest} vs the JAX reference")
+    ka_tree = {g: {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+               for g, d in ckpt_known_state(np).items()}
+    root = Path(tempfile.mkdtemp(prefix="msr_shard_"))
+    try:
+        for label, mesh in (("unsharded", None), ("mesh", mesh4)):
+            digest = ckpt_rehearsal(MSRCheckpointer, CodeSpec, root / label,
+                                    ka_tree, mesh=mesh)
+            known[f"ckpt_{label}"] = digest
+            require(digest == KA_CKPT_SHA256,
+                    f"checkpoint known answer {label}: {digest} vs the JAX "
+                    f"reference")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the ring encode over 16 nodes on one card
+    ring = {}
+    data = rnd((n, s), 256)                      # raw bytes: byte wire valid
+    want = circ(data, spec.c, P)
+    ring["circulant_encode_ms"] = time_ms(lambda: circ(data, spec.c, P), 5)
+    mesh16 = make_storage_mesh(n, devices=[dev0] * n)
+    for wire, byte_wire in (("int32", False), ("uint8", True)):
+        traffic = LinkTraffic()
+        got = ring_encode(data, spec, mesh16, byte_wire=byte_wire,
+                          traffic=traffic)
+        require(torch.equal(got, want),
+                f"ring_encode ({wire} wire) equals circulant_encode")
+        require(set(traffic.blocks.values()) == {K}
+                and len(traffic.blocks) == n,
+                f"{K} blocks on each of the {n} links: {traffic.blocks}")
+        per_symbol = 1 if byte_wire else 4
+        require(set(traffic.bytes.values()) == {K * s * per_symbol},
+                f"{per_symbol} B a symbol on the {wire} wire")
+        del got
+        ring[f"{wire}_ms"] = time_ms(lambda: ring_encode(
+            data, spec, mesh16, byte_wire=byte_wire), 3, warmup=1)
+        ring[f"{wire}_link_bytes"] = K * s * per_symbol
+    del data, want
+    torch.cuda.empty_cache()
+
+    # int8_ring_mean over qwen3-4b's embedding, one row a device
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rows_x = torch.randn((RING_MEAN_N,) + RING_MEAN_ROW, generator=g,
+                         device="cuda")
+    mesh_n = make_host_mesh(devices=[dev0] * RING_MEAN_N)
+    t0 = time.perf_counter()
+    got = int8_ring_mean(rows_x, mesh_n, "data")
+    torch.cuda.synchronize()
+    mean_wall = (time.perf_counter() - t0) * 1e3
+    want = ring_mean_plain(torch, quantize, dequantize, rows_x)
+    diff = max(float((got[i] - want).abs().max()) for i in range(RING_MEAN_N))
+    require(diff == 0.0, f"int8_ring_mean vs its plain composition: max "
+            f"|diff| {diff} (tolerance 0: the same float32 ops in order)")
+    del want
+    scale = float(rows_x.abs().max()) / 127.0
+    err = float((got[0] - rows_x.mean(0)).abs().max())
+    require(err <= RING_MEAN_BOUND * scale,
+            f"int8_ring_mean within {RING_MEAN_BOUND} x scale of the true "
+            f"mean: {err} vs {RING_MEAN_BOUND * scale}")
+    ring_mean = {"n": RING_MEAN_N, "row": list(RING_MEAN_ROW),
+                 "wall_ms": mean_wall,
+                 "ms": time_ms(lambda: int8_ring_mean(rows_x, mesh_n, "data"),
+                               3, warmup=1),
+                 "max_abs_diff_vs_plain": diff, "err_vs_true_mean": err,
+                 "bound": RING_MEAN_BOUND * scale}
+    del got, rows_x
+    torch.cuda.empty_cache()
+    scale = shard_at_scale(torch, np, gfm, circ, mesh4, store_mib, ckpt_mib)
+    launches = counted(gfm, circ)
+    require(all(v > 0 for v in launches.values()),
+            f"both kernels ran on the shard path: {launches}")
+    return {"launches": launches, "symbols_per_block": s, "cards": cards,
+            "planner": rows, "known_answers": known, "ring": ring,
+            "int8_ring_mean": ring_mean, "mesh": SHARD_STORE_MESH,
+            "at_scale": scale}
 
 
 MODEL_ARCH = "qwen3-4b"     # serve_demo.py's default arch, at full width
@@ -2763,6 +3157,14 @@ def main() -> int:
     emit({"phase": "drills", "ok": True, "card": smi, "code": "[6,3] GF(257)",
           **drill_res, "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
+    shard_res = phase_shard(torch, np, gfm, circ, plan_mod,
+                            main_res["symbols_per_block"], args.store_mib,
+                            args.ckpt_mib)
+    emit({"phase": "shard", "ok": True, "card": smi,
+          "code": f"[{n},{K}] GF({P})", **shard_res,
+          "seconds": time.perf_counter() - t0})
+
     import dataclasses
     cut = model_config(dataclasses, get_config)
     require(model_param_bytes(torch, cut) == MODEL_PARAM_BYTES,
@@ -2800,7 +3202,7 @@ def main() -> int:
 
     paths = {"main": main_res, "store": store_res, "checkpoint": ckpt_res,
              "serve": serve_res, "cluster": cluster_res, "drills": drill_res,
-             "model": model_res, "families": families_res,
+             "shard": shard_res, "model": model_res, "families": families_res,
              "train": train_res}
     source = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                             "src/repro/kernels/gf_matmul.py:96", "decode"),

@@ -210,11 +210,15 @@ class MSRCheckpointer:
         File I/O seam (fault injection); default `LocalBlob`.
     retry : RetryPolicy, optional
         How blob operations retry transient faults.
-    mesh : None or 1
-        Stream-axis sharding is not ported yet; anything else raises.
+    mesh : StreamMesh | int | None, optional
+        Stream-axis device mesh of the directory-mode code: the
+        stream-tile save / restore pipeline runs every tile once per
+        shard through the code's planner (None inherits the ambient
+        ``use_mesh`` scope).  Store mode uses the store's code and mesh.
     device : torch.device or str, optional
         Where the code computes and restored leaves land; None is the CUDA
-        card (raises without one).  Store mode uses the store's device.
+        card (raises without one), or the mesh's first device.  Store mode
+        uses the store's device.
 
     ``repair_node``/``scrub`` are directory-mode-only (the store's
     scheduler owns repair in store mode).

@@ -128,8 +128,10 @@ class ErasureCode(abc.ABC):
     dispatch through (DESIGN.md §15.1).
 
     Subclasses are built by the registry from a :class:`CodeClass` on a
-    ``device`` (None is the card) and must define the share geometry (``share_blocks``, ``data_blocks``,
-    ``derived_rows``), the systematic map (``data_location``,
+    ``device`` (None is the card, or the first device of ``mesh``, which
+    defaults to the ambient ``use_mesh`` scope) and must define the share
+    geometry (``share_blocks``, ``data_blocks``, ``derived_rows``), the
+    systematic map (``data_location``,
     ``stripe_share_blocks``), the encode kernel
     (``encode_derived_planned``), the any-k decode surface
     (``decode_rows`` / ``share_rows`` with ``helper_block_ids`` fixing
@@ -144,22 +146,22 @@ class ErasureCode(abc.ABC):
         if code_class.family != self.family:
             raise ValueError(f"{type(self).__name__} builds family "
                              f"{self.family!r}, got {code_class.family!r}")
-        if mesh is not None and mesh != 1:
-            raise NotImplementedError(
-                "stream-axis mesh sharding is not ported yet; pass mesh=None")
         self.code_class = code_class
         self.n, self.k, self.d, self.p = (code_class.n, code_class.k,
                                           code_class.d, code_class.p)
-        self.device = resolve_device(device)
         from repro_torch.kernels import dispatch
+        from repro_torch.sharding import mesh as mesh_mod
+        self.mesh = (mesh_mod.as_stream_mesh(mesh) if mesh is not None
+                     else mesh_mod.current_mesh())
+        self.device = resolve_device(mesh_mod.mesh_device(self.mesh, device))
         be = dispatch.get(backend) if backend else dispatch.select(
             self.p, self.k, self.device)
         self.backend_name = be.name
         self._backend = be
-        # shared per (backend, p, device) — the plan cache the
+        # shared per (backend, p, mesh, device) — the plan cache the
         # double-circulant code hits; family tags keep per-family plan
         # keys and stats separable (§15.4)
-        self.planner = be.planner(self.p, self.device)
+        self.planner = be.planner(self.p, self.device, mesh=self.mesh)
 
     # ------------------------------------------------------------- identity
     def family_key(self) -> str:

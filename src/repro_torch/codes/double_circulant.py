@@ -46,8 +46,12 @@ class DoubleCirculantCode(ErasureCode):
         Reuse an existing code instance — the store wraps its live
         ``store.code`` so the adapter shares its planner, decode-inverse
         cache, backend selection and device.
+    mesh : StreamMesh | int | None, optional
+        Stream-axis mesh of a new inner code (None: the ambient
+        ``use_mesh`` scope); an ``inner`` code keeps its own.
     device : torch.device or str, optional
-        Where a new inner code computes (None is the card).
+        Where a new inner code computes (None is the card, or the mesh's
+        first device).
     """
 
     def __init__(self, code_class: CodeClass, *, backend: Optional[str] = None,
@@ -71,6 +75,7 @@ class DoubleCirculantCode(ErasureCode):
             DoubleCirculantMSR(self.spec, backend=backend, mesh=mesh,
                                device=device)
         self.backend_name = self.inner.backend_name
+        self.mesh = self.inner.mesh
         self.device = self.inner.device
         self.planner = self.inner.planner
 

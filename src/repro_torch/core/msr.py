@@ -61,10 +61,15 @@ class DoubleCirculantMSR:
         auto-selects from the device.
     inverse_cache_size : int
         LRU capacity of the decode-inverse cache.
-    mesh : None or 1
-        Stream-axis sharding is not ported yet; anything else raises.
+    mesh : StreamMesh | int | None
+        Shard every planned op over this stream-axis device mesh
+        (``repro_torch.sharding.mesh``).  ``None`` inherits the ambient
+        ``use_mesh(...)`` scope (or no mesh at all); a 1-shard mesh falls
+        back to the plain unsharded planner.  Ignored with a custom
+        ``matmul``.
     device : torch.device or str, optional
-        Where the code computes; None is the card (raises without CUDA).
+        Where the code computes; None is the card (raises without CUDA),
+        or the mesh's first device when meshed (another device raises).
 
     Attributes
     ----------
@@ -77,28 +82,33 @@ class DoubleCirculantMSR:
     def __init__(self, spec: CodeSpec, matmul: MatmulFn | None = None,
                  backend: str | None = None,
                  inverse_cache_size: int = 128, mesh=None, device=None):
-        if mesh is not None and mesh != 1:
-            raise NotImplementedError(
-                "stream-axis mesh sharding is not ported yet; pass mesh=None")
         self.spec = spec
         self.k, self.n, self.p = spec.k, spec.n, spec.p
         self.c = np.asarray(spec.c, dtype=np.int32)
-        self.device = resolve_device(device)
         self._custom_matmul = matmul is not None
         if matmul is None:
             from repro_torch.kernels import dispatch
+            from repro_torch.sharding import mesh as mesh_mod
+            self.mesh = (mesh_mod.as_stream_mesh(mesh) if mesh is not None
+                         else mesh_mod.current_mesh())
+            self.device = resolve_device(mesh_mod.mesh_device(self.mesh,
+                                                              device))
             be = dispatch.get(backend) if backend else dispatch.select(
                 self.p, self.k, self.device)
             self.backend_name = be.name
             self._matmul = be.msr_matmul()
             self._circulant = be.circulant_encode
             engine_mm = be.matmul
-            self.planner = be.planner(self.p, self.device)
+            # shared per (backend, p, mesh, device): every code on this
+            # backend and mesh hits one plan cache
+            self.planner = be.planner(self.p, self.device, mesh=self.mesh)
         else:
+            self.device = resolve_device(device)
             self.backend_name = "custom"
             self._matmul = matmul
             self._circulant = None
             engine_mm = matmul
+            self.mesh = None
             self.planner = None
         self._m = spec.matrix_m()            # (n, n) M[j, i] = coef of a_j in r_{i+1}
         self._mt = np.ascontiguousarray(self._m.T)  # (n, n): r = M^T @ a

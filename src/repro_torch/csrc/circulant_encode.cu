@@ -30,6 +30,11 @@
 //     limit.
 //   * inputs already in [0, p) pass with one unsigned compare; anything
 //     else is reduced with Python's sign rule.  Offsets are 64-bit.
+//   * data and out each carry a row pitch (elements between rows), so a
+//     column window of a larger tensor is read and written where it lies:
+//     a shard of a stream-axis mesh on the data's own card costs no copy.
+//     The load loop is unrolled by 4 so the pitched build keeps as many
+//     loads in flight as the stride-s build did.
 // A register-resident sliding window (no shared-memory tile) and Barrett
 // reduction are left for a performance pass.
 
@@ -54,8 +59,9 @@ __device__ __forceinline__ unsigned reduce_in(int x, int p) {
 template <int VEC>
 __global__ void circulant_encode_kernel(const int* __restrict__ data,
                                         int* __restrict__ out, int n,
-                                        long long s, const Coefs coef, int p,
-                                        int lazy) {
+                                        long long s, long long data_ld,
+                                        long long out_ld, const Coefs coef,
+                                        int p, int lazy) {
   extern __shared__ unsigned tile[];  // [n][blockDim.x][VEC]
   const int t = threadIdx.x;
   const int T = blockDim.x;
@@ -64,8 +70,12 @@ __global__ void circulant_encode_kernel(const int* __restrict__ data,
   const int k = n / 2;
   const unsigned up = (unsigned)p;
 
+  // four rows' loads in flight: with a row pitch apart from s, nvcc
+  // otherwise issues one 16-byte load per iteration and the encode loses
+  // 12% (3.29 -> 3.71 ms at (16, 2^26) on an H100)
+#pragma unroll 4
   for (int r = 0; r < n; ++r) {
-    const int* src = data + (long long)r * s + col;
+    const int* src = data + (long long)r * data_ld + col;
     unsigned* dst = tile + ((long long)r * T + t) * VEC;
     if constexpr (VEC == 4) {
       const int4 v = __ldg(reinterpret_cast<const int4*>(src));
@@ -103,7 +113,7 @@ __global__ void circulant_encode_kernel(const int* __restrict__ data,
       }
       if (--r < 0) r += n;
     }
-    int* dst = out + (long long)j * s + col;
+    int* dst = out + (long long)j * out_ld + col;
     if constexpr (VEC == 4) {
       *reinterpret_cast<int4*>(dst) =
           make_int4((int)(acc[0] % up), (int)(acc[1] % up),
@@ -124,7 +134,8 @@ int pick_threads(int n) {
 
 template <int VEC>
 cudaError_t launch(const int* data, int* out, int n, long long s,
-                   const Coefs& coef, int p, int lazy, cudaStream_t st) {
+                   long long data_ld, long long out_ld, const Coefs& coef,
+                   int p, int lazy, cudaStream_t st) {
   const int threads = pick_threads<VEC>(n);
   const size_t smem = (size_t)n * threads * VEC * 4;
   if (smem > 48 * 1024) {
@@ -135,8 +146,8 @@ cudaError_t launch(const int* data, int* out, int n, long long s,
   }
   const long long cols_per_block = (long long)threads * VEC;
   dim3 grid((unsigned)((s + cols_per_block - 1) / cols_per_block));
-  circulant_encode_kernel<VEC><<<grid, threads, smem, st>>>(data, out, n, s,
-                                                            coef, p, lazy);
+  circulant_encode_kernel<VEC><<<grid, threads, smem, st>>>(
+      data, out, n, s, data_ld, out_ld, coef, p, lazy);
   return cudaGetLastError();
 }
 
@@ -144,23 +155,29 @@ cudaError_t launch(const int* data, int* out, int n, long long s,
 
 extern "C" {
 
-// out = circulant encode of data, both (n, s) int32 contiguous, n = 2k,
-// c: k host ints in [1, p).  Launches on `stream`, does not synchronise,
-// returns cudaGetLastError().
+// out = circulant encode of data, both (n, s) int32 with adjacent symbols
+// along the stream, row r at data + r * data_ld and out + r * out_ld,
+// n = 2k, c: k host ints in [1, p).  Launches on `stream`, does not
+// synchronise, returns cudaGetLastError().
 int circulant_encode_launch(const void* data, void* out, int n, long long s,
+                            long long data_ld, long long out_ld,
                             const int* c, int k, int p, int lazy,
                             void* stream) {
-  if (k <= 0 || k > MAX_K || n != 2 * k || s <= 0 || lazy <= 0)
+  if (k <= 0 || k > MAX_K || n != 2 * k || s <= 0 || lazy <= 0 ||
+      data_ld < s || out_ld < s)
     return (int)cudaErrorInvalidValue;
   Coefs coef;
   for (int u = 0; u < MAX_K; ++u) coef.c[u] = u < k ? c[u] : 0;
   const bool aligned = (s % 4 == 0) && ((uintptr_t)data % 16 == 0) &&
-                       ((uintptr_t)out % 16 == 0) &&
+                       ((uintptr_t)out % 16 == 0) && (data_ld % 4 == 0) &&
+                       (out_ld % 4 == 0) &&
                        (long long)n * 32 * 4 * 4 <= SMEM_BUDGET;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err =
-      aligned ? launch<4>((const int*)data, (int*)out, n, s, coef, p, lazy, st)
-              : launch<1>((const int*)data, (int*)out, n, s, coef, p, lazy, st);
+      aligned ? launch<4>((const int*)data, (int*)out, n, s, data_ld, out_ld,
+                          coef, p, lazy, st)
+              : launch<1>((const int*)data, (int*)out, n, s, data_ld, out_ld,
+                          coef, p, lazy, st);
   return (int)err;
 }
 

@@ -34,10 +34,16 @@
 //     persistent (SMs x resident blocks) and walks the tiles, so one
 //     tile's stores overlap the next tiles' loads.  Results leave with
 //     streaming stores (__stcs): nothing here reads them back.
-//   * row sources.  b arrives as up to 4 tensors (base, rows, batch
-//     stride), read as if concatenated along the contraction axis: the
-//     decode's data and redundancy downloads, and the regenerate's r_prev
-//     row beside its k helper rows, need no concatenated copy.
+//   * row sources.  b arrives as up to 4 tensors (base, rows, row pitch,
+//     batch stride), read as if concatenated along the contraction axis:
+//     the decode's data and redundancy downloads, and the regenerate's
+//     r_prev row beside its k helper rows, need no concatenated copy.
+//   * row pitch.  Every stream operand and the output carry their own
+//     pitch (elements between rows), so a column window of a larger
+//     tensor is read and written where it lies: a shard of a stream-axis
+//     mesh on the operands' own card costs no copy of its window (at the
+//     main path's (16, 2^26) a .contiguous() window would move as many
+//     bytes as the product itself).
 //   * the code matrix `a` is reduced and staged in shared memory,
 //     transposed so a row group's RT coefficients for one term are one or
 //     two 16-byte loads; a stride-0 batch (one repair matrix for every
@@ -88,6 +94,7 @@ struct Tile {
 struct Sources {
   const int* ptr[MAX_SOURCES];
   long long bstride[MAX_SOURCES];  // elements between batch elements
+  long long ld[MAX_SOURCES];       // elements between rows
   int rows[MAX_SOURCES];
   int n;
 };
@@ -98,6 +105,8 @@ struct Args {
   int* out;
   long long s;
   long long a_bstride;
+  long long out_ld;                // output: elements between rows
+  long long out_bstride;           // and between batch elements
   long long ctiles;                // column tiles per (batch, row tile)
   long long tiles;                 // batch * row_tiles * ctiles
   long long batch;
@@ -177,15 +186,15 @@ __device__ __forceinline__ void consumers_sync(int nthreads) {
 
 // Row j of the concatenated contraction operand for batch element f.
 __device__ __forceinline__ const int* row_ptr(const Sources& src, int j,
-                                              long long f, long long s) {
+                                              long long f) {
 #pragma unroll
   for (int i = 0; i < MAX_SOURCES - 1; ++i) {
     if (i + 1 >= src.n || j < src.rows[i])
-      return src.ptr[i] + f * src.bstride[i] + (long long)j * s;
+      return src.ptr[i] + f * src.bstride[i] + (long long)j * src.ld[i];
     j -= src.rows[i];
   }
   return src.ptr[MAX_SOURCES - 1] + f * src.bstride[MAX_SOURCES - 1] +
-         (long long)j * s;
+         (long long)j * src.ld[MAX_SOURCES - 1];
 }
 
 // Coefficients of a row group are padded to RTP so one term's RT values
@@ -247,15 +256,14 @@ __device__ void produce(const Args& args, unsigned* ring, int* shifts,
           mbar_arrive_expect_tx(&full[stage], (unsigned)(kc * ncols * 4));
         __syncwarp();
         for (int jj = lane; jj < kc; jj += 32)
-          bulk_g2s(buf + jj * PITCH, row_ptr(args.src, k0 + jj, f, args.s) +
-                                         col0,
+          bulk_g2s(buf + jj * PITCH, row_ptr(args.src, k0 + jj, f) + col0,
                    (unsigned)(ncols * 4), &full[stage]);
       } else {
         unsigned body_bytes = 0;
         const int* g = nullptr;
         int sh = 0, head = 0, body = 0;
         if (lane < kc) {
-          g = row_ptr(args.src, k0 + lane, f, args.s) + col0;
+          g = row_ptr(args.src, k0 + lane, f) + col0;
           sh = (int)(((uintptr_t)g & 15) >> 2);
           head = min(ncols, (4 - sh) & 3);
           body = (ncols - head) & ~3;
@@ -398,12 +406,12 @@ __device__ void consume(const Args& args, const unsigned* ring,
     }
 
     if (!live) continue;
-    int* obase = args.out + f * (long long)args.m * args.s + col0 + c4;
+    int* obase = args.out + f * args.out_bstride + col0 + c4;
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
       const int row = row0 + rg * RT + r;
       if (row >= args.m) break;
-      int* o = obase + (long long)row * args.s;
+      int* o = obase + (long long)row * args.out_ld;
       unsigned y[4];
 #pragma unroll
       for (int v = 0; v < 4; ++v) y[v] = fold(acc[r][v], up, mu);
@@ -574,28 +582,33 @@ extern "C" {
 
 // out[f] = (a[f] @ b[f]) mod p for f < batch, where b[f] is the
 // concatenation along the contraction axis of nsrc <= 4 sources: source i
-// holds rows[i] rows of s symbols at src[i] + f * bstride[i].
-// a: (m, k) at a + f * a_bstride (0: one matrix for the whole batch),
-// k = sum(rows); out: (batch, m, s), contiguous.  p >= 2.
+// holds rows[i] rows of s symbols, row j at src[i] + f * bstride[i] +
+// j * ld[i].  a: (m, k) contiguous at a + f * a_bstride (0: one matrix for
+// the whole batch), k = sum(rows); out row r of batch element f at
+// out + f * out_bstride + r * out_ld, its s symbols adjacent.  p >= 2.
 // Launches on `stream`, does not synchronise, returns cudaGetLastError().
 int gf_matmul_launch(const void* a, void* out, const void* const* src,
-                     const long long* bstride, const int* rows, int nsrc,
-                     int batch, int m, int k, long long s,
-                     long long a_bstride, int p, int lazy, void* stream) {
+                     const long long* bstride, const long long* ld,
+                     const int* rows, int nsrc, int batch, int m, int k,
+                     long long s, long long a_bstride, long long out_ld,
+                     long long out_bstride, int p, int lazy, void* stream) {
   if (nsrc < 1 || nsrc > MAX_SOURCES || batch <= 0 || m <= 0 || k <= 0 ||
-      s <= 0 || lazy <= 0 || p < 2)
+      s <= 0 || lazy <= 0 || p < 2 || (m > 1 && out_ld < s) ||
+      (batch > 1 && out_bstride < (long long)m * out_ld))
     return (int)cudaErrorInvalidValue;
   Args args = {};
   int total = 0;
-  bool aligned = (s % 4 == 0) && ((uintptr_t)out % 16 == 0);
+  bool aligned = (s % 4 == 0) && ((uintptr_t)out % 16 == 0) &&
+                 (out_ld % 4 == 0) && (out_bstride % 4 == 0);
   for (int i = 0; i < nsrc; ++i) {
     if (rows[i] <= 0) return (int)cudaErrorInvalidValue;
     args.src.ptr[i] = (const int*)src[i];
     args.src.bstride[i] = bstride[i];
+    args.src.ld[i] = ld[i];
     args.src.rows[i] = rows[i];
     total += rows[i];
     aligned = aligned && ((uintptr_t)src[i] % 16 == 0) &&
-              (bstride[i] % 4 == 0);
+              (bstride[i] % 4 == 0) && (ld[i] % 4 == 0);
   }
   if (total != k) return (int)cudaErrorInvalidValue;
   args.src.n = nsrc;
@@ -603,6 +616,8 @@ int gf_matmul_launch(const void* a, void* out, const void* const* src,
   args.out = (int*)out;
   args.s = s;
   args.a_bstride = a_bstride;
+  args.out_ld = out_ld;
+  args.out_bstride = out_bstride;
   args.m = m;
   args.k = k;
   args.p = p;

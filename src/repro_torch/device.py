@@ -25,6 +25,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def canonical_device(device) -> torch.device:
+    """:func:`resolve_device` of ``device`` with a CUDA device's index
+    filled in (``"cuda"`` is the current card), so that two names of one
+    device compare equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def device_of(*xs, device=None) -> torch.device:
     """The device of the first tensor among ``xs``, else
     :func:`resolve_device` of ``device``."""
@@ -65,4 +75,4 @@ def as_int32(x, p: int, device: torch.device) -> torch.Tensor:
     return t.to(device).contiguous()
 
 
-__all__ = ["resolve_device", "device_of", "as_int32"]
+__all__ = ["resolve_device", "canonical_device", "device_of", "as_int32"]

@@ -20,17 +20,29 @@ keeps the reference's contract all the same:
   behind it; it returns exactly the reference's numpy array, in pageable
   memory as the reference's is.
 
-Host numpy operands reach a CUDA device through the planner's pinned
-:class:`~repro_torch.exec.staging.StagingPool`: staged, copied with a
-non-blocking DMA, and released once the copy's event has completed (at
-the latest in ``host()``).  An operand that already IS a buffer of that
-pool (caller-staged: the object store writes its windows straight into
-``planner.staging`` buffers sized by :meth:`PlanCache.stream_pad`) is
-DMA'd as it lies, with no second copy; its release stays with the
-caller, after ``host()``.  Tensor operands already on the device are
-used in place.
+Mesh-sharded plans: pass ``mesh=`` (a
+:class:`~repro_torch.sharding.mesh.StreamMesh`, an int shard count over
+the CUDA cards, or None) and every op runs once per shard under the
+rule registry (:func:`~repro_torch.sharding.mesh.shard_body`): the
+stream splits into ``ceil(s / m)``-wide column windows, the small
+matrices are replicated, and the result is assembled on the mesh's first
+device.  An unsharded planner runs the same path over one shard on its
+device.  The plan key buckets the *per-shard* extent, as the reference
+does; hits, misses and compiles count per op call, not per shard.  A
+1-shard mesh normalizes to the plain unsharded planner (the same
+object), and donation is off when meshed.
 
-Mesh-sharded plans are not ported yet: ``mesh`` accepts only None or 1.
+Operands: a tensor already on a shard's device is read in place (the
+kernels take a row pitch), and a shard on the result's device writes its
+window of the output in place.  Host numpy is staged once per device:
+the span of that device's windows is copied into a buffer of the
+planner's pinned :class:`~repro_torch.exec.staging.StagingPool`, DMA'd
+non-blocking, and released once the op's events have completed (at the
+latest in ``host()``).  An operand that already IS a buffer of that pool
+(caller-staged: the object store writes its windows straight into
+``planner.staging`` buffers sized by :meth:`PlanCache.stream_pad`) and
+whose span is the whole of it is DMA'd as it lies, with no second copy;
+its release stays with the caller, after ``host()``.
 """
 from __future__ import annotations
 
@@ -43,7 +55,9 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.device import as_int32, resolve_device
+from repro_torch.device import as_int32, canonical_device, resolve_device
+from repro_torch.sharding.mesh import (StreamMesh, as_stream_mesh,
+                                       mesh_device, shard_body, window_to)
 
 from .staging import StagingPool, record_stage
 
@@ -120,10 +134,12 @@ def make_regen_fn(mm: Callable, p: int) -> Callable:
     arithmetic is exact — both compute R @ [r_prev; next_data] mod p — and
     R[1, 0] = 0, so the r_prev column adds nothing to the re-encode row.
     ``mm`` must take the tuple form of its contraction operand (both
-    dispatch backends do).
+    dispatch backends do), and ``out=`` when one is passed (a meshed
+    planner's shards write their windows of the result in place).
     """
-    def fn(rmat, r_prev, next_data):
-        return mm(rmat, (r_prev.unsqueeze(-2), next_data), p)
+    def fn(rmat, r_prev, next_data, out=None):
+        b = (r_prev.unsqueeze(-2), next_data)
+        return mm(rmat, b, p) if out is None else mm(rmat, b, p, out=out)
 
     return fn
 
@@ -146,6 +162,8 @@ class PlanResult:
     """
 
     __slots__ = ("raw", "symbols", "batch", "_release", "_done")
+    # ``_done``: the op's event on raw's device; a sharded op's release
+    # also waits for every shard device's event.
 
     def __init__(self, raw, symbols: int, batch: Optional[int] = None,
                  release: Optional[Callable] = None, done=None):
@@ -237,24 +255,35 @@ class PlanCache:
         planned op reads its operands where the caller left them (or from
         the planner's own staging) and returns a fresh tensor, so a
         caller's operand is never overwritten and no result changes.
-    mesh : None or 1
-        Stream-axis sharding is not ported yet; anything else raises.
+    mesh : StreamMesh | int | None, optional
+        Shard every op over this stream-axis mesh (see the module
+        docstring); a 1-shard mesh normalizes to None.  The backend's
+        ops must then take ``out=``, as both registered backends do.
     device : torch.device or str, optional
-        Where the ops run; None is the card.
+        Where the ops run and results land; None is the card, or the
+        mesh's first device when meshed (another device raises).
     """
 
     def __init__(self, backend, p: int, *, bucket_min: int = BUCKET_MIN,
                  bucket_ratio: float = BUCKET_RATIO,
                  donate: Optional[bool] = None, mesh=None, device=None):
-        _check_mesh(mesh)
+        mesh, device = _normalize_mesh(mesh, device)
         self.backend = backend
         self.p = int(p)
         self.bucket_min = int(bucket_min)
         self.bucket_ratio = float(bucket_ratio)
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.donate = _donation(donate, self.device)
-        # pinned host staging for numpy operands bound for the card
-        self.staging = StagingPool(pin=self.device.type == "cuda")
+        # the shards every op runs over: one on the device when unsharded
+        self._shards = mesh if mesh is not None else \
+            StreamMesh(1, devices=[self.device])
+        # no donation when meshed, as the reference: each shard reads
+        # its own window, there is no whole buffer to reuse
+        self.donate = False if mesh is not None else \
+            _donation(donate, self.device)
+        # pinned host staging for numpy operands bound for a card
+        self.staging = StagingPool(pin=any(
+            d.type == "cuda" for d in self._shards.devices))
         self._plans: set[tuple] = set()
         self._lock = threading.Lock()
         # operands DMA'd straight out of caller-staged pool buffers
@@ -299,56 +328,123 @@ class PlanCache:
     def stream_pad(self, s: int) -> tuple[int, int]:
         """(plan-key bucket, staging extent) for a true stream extent s.
 
-        The reference pads a caller's staging buffer up to the bucket; the
+        The reference pads a caller's staging buffer up to the bucket
+        (per shard when meshed: the bucket of ``ceil(s / m)``); the
         kernels here mask the ragged edge, so the buffer is exactly ``s``
         wide and no zero tail is ever computed."""
-        return self.bucket(s), int(s)
-
-    def _stage(self, x, bufs: list) -> torch.Tensor:
-        """An int32 tensor of ``x`` on the planner's device.  Numpy bound
-        for the card goes through a pinned pool buffer (appended to
-        ``bufs``) and a non-blocking copy — unless it already is one of
-        this pool's buffers, which is copied as it lies and stays the
-        caller's to release."""
-        if isinstance(x, torch.Tensor) or self.device.type != "cuda":
-            return as_int32(x, self.p, self.device)
-        arr = np.asarray(x)
-        if arr.dtype == np.int32 and arr.flags.c_contiguous \
-                and self.staging.holds(arr):
-            self.staged_in_place += 1
-            t0 = perf_counter()
-            out = torch.from_numpy(arr).to(self.device, non_blocking=True)
-            record_stage("h2d", perf_counter() - t0)
-            return out
-        if arr.dtype != np.int32 and arr.dtype.itemsize > 2:
-            arr = np.remainder(arr.astype(np.int64), self.p)
-        t0 = perf_counter()
-        buf = self.staging.acquire(arr.shape, np.int32)
-        np.copyto(buf, arr, casting="unsafe")
-        out = torch.from_numpy(buf).to(self.device, non_blocking=True)
-        bufs.append(buf)
-        record_stage("h2d", perf_counter() - t0)
-        return out
+        return self.bucket(self._shards.shard_extent(s)), int(s)
 
     def _result(self, raw: torch.Tensor, s: int, bufs: list,
                 batch: Optional[int] = None) -> PlanResult:
         """Wrap ``raw`` with an event recorded right after the op (on the
-        card); staged buffers are released once that event has completed,
-        at the latest in host()."""
+        card), and after a sharded op one on every other shard device;
+        staged buffers are released once those events have completed, at
+        the latest in host()."""
         if not raw.is_cuda:
+            # a result on the CPU was copied there synchronously: every
+            # shard's reads of its staging are done
+            for b in bufs:
+                self.staging.release(b)
             return PlanResult(raw, s, batch)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(raw.device))
-        if not bufs:
-            return PlanResult(raw, s, batch, done=ev)
+        devs = [raw.device] + sorted(
+            {d for d in self._shards.devices if d.type == "cuda"}
+            - {raw.device}, key=str)
+        events = []
+        for d in devs:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(d))
+            events.append(ev)
+        if not bufs and len(events) == 1:
+            return PlanResult(raw, s, batch, done=events[0])
         pool = self.staging
 
         def rel():
-            ev.synchronize()
+            for ev in events:
+                ev.synchronize()
             for b in bufs:
                 pool.release(b)
 
-        return PlanResult(raw, s, batch, release=rel, done=ev)
+        return PlanResult(raw, s, batch, release=rel, done=events[0])
+
+    # ------------------------------------------------------------- sharding
+    def _prep(self, x):
+        """A stream operand before it is split: a tensor as int32 where it
+        lies; anything else as an integer numpy array (wide dtypes reduced
+        mod p), staged device by device in :meth:`_stager`."""
+        if isinstance(x, torch.Tensor):
+            return as_int32(x, self.p, x.device)
+        arr = np.asarray(x)
+        if arr.dtype.kind not in "iu":
+            raise TypeError(f"GF symbols must be integers, got {arr.dtype}")
+        if arr.dtype != np.int32 and arr.dtype.itemsize > 2:
+            arr = np.remainder(arr.astype(np.int64), self.p)
+        return arr
+
+    def _stager(self, bufs: list) -> Callable:
+        """``shard_body``'s stage for one op: a tensor's window read in
+        place on its own device (else copied there); a host array staged
+        once per device — the span of that device's windows — and each
+        window read from the staged span in place."""
+        spans: dict = {}
+
+        def stage(x, dim, lo, hi, dev):
+            if isinstance(x, torch.Tensor):
+                return window_to(x, dim, lo, hi, dev)
+            key = (id(x), dev)
+            if key not in spans:
+                wins = [w for d, w in zip(self._shards.devices,
+                                          self._shards.windows(x.shape[dim]))
+                        if d == dev and w[1] > w[0]]
+                a, b = wins[0][0], wins[-1][1]
+                spans[key] = a, self._stage_span(x, dim, a, b, dev, bufs)
+            a, t = spans[key]
+            return t.narrow(dim, lo - a, hi - lo)
+
+        return stage
+
+    def _stage_span(self, arr: np.ndarray, dim: int, a: int, b: int,
+                    dev: torch.device, bufs: list) -> torch.Tensor:
+        """Columns [a, b) along ``dim`` of a prepared host array as an
+        int32 tensor on ``dev``.  The host reads it where it lies.  A card
+        gets a non-blocking DMA: of the array as it lies when the span is
+        the whole of one of this pool's buffers (the caller's to
+        release), else of a pooled pinned copy (appended to ``bufs``)."""
+        span = arr if (a, b) == (0, arr.shape[dim]) else \
+            arr[(slice(None),) * dim + (slice(a, b),)]
+        if dev.type != "cuda":
+            return as_int32(span, self.p, dev)
+        t0 = perf_counter()
+        if span is arr and arr.dtype == np.int32 \
+                and arr.flags.c_contiguous and self.staging.holds(arr):
+            self.staged_in_place += 1
+            src = arr
+        else:
+            src = self.staging.acquire(span.shape, np.int32)
+            np.copyto(src, span, casting="unsafe")
+            bufs.append(src)
+        out = torch.from_numpy(src).to(dev, non_blocking=True)
+        record_stage("h2d", perf_counter() - t0)
+        return out
+
+    def _launch(self, op: str, fn: Callable, operands: tuple, out_shape: tuple,
+                key: tuple, tag: Optional[str] = None,
+                batch: Optional[int] = None) -> PlanResult:
+        """Run ``fn`` once per shard under op's rule (one shard on the
+        planner's device when unsharded), assembled into a new
+        (out_shape) int32 tensor on the planner's device, under plan
+        ``key``."""
+        bufs: list = []
+
+        def launch():
+            out = torch.empty(out_shape, dtype=torch.int32,
+                              device=self.device)
+            run = shard_body(fn, op, self._shards, stage=self._stager(bufs))
+            return run(*operands, out=out)
+
+        s = out_shape[-1]
+        if not _ENABLED:
+            return self._result(launch(), s, bufs, batch)
+        return self._result(self._run(key, launch, tag), s, bufs, batch)
 
     @staticmethod
     def _tagged(key: tuple, tag: Optional[str]) -> tuple:
@@ -379,84 +475,69 @@ class PlanCache:
         """(mat @ blocks) mod p — the decode-side workhorse.  ``mat``'s
         shape is part of the plan key, its values are not.  ``blocks`` may
         be a tuple of row sources read as if concatenated along the
-        contraction axis (one launch, no concatenated copy); the key is
-        the concatenation's shape."""
-        bufs: list = []
+        contraction axis (one launch per shard, no concatenated copy); the
+        key is the concatenation's shape."""
         mat = as_int32(mat, self.p, self.device)
         if isinstance(blocks, tuple):
-            blocks = tuple(self._stage(b, bufs) for b in blocks)
+            blocks = tuple(self._prep(b) for b in blocks)
             lead = tuple(blocks[0].shape[:-2]) + (
                 sum(b.shape[-2] for b in blocks),)
-            s = blocks[0].shape[-1]
         else:
-            blocks = self._stage(blocks, bufs)
+            blocks = self._prep(blocks)
             lead = tuple(blocks.shape[:-1])
-            s = blocks.shape[-1]
-        if not _ENABLED:
-            return self._result(self.backend.matmul(mat, blocks, self.p), s,
-                                bufs)
+        s = (blocks[0] if isinstance(blocks, tuple) else blocks).shape[-1]
+        mm = self.backend.matmul
         key = self._tagged(("matmul", tuple(mat.shape), lead,
-                            self.bucket(s)), tag)
-        raw = self._run(key, lambda: self.backend.matmul(mat, blocks, self.p),
-                        tag)
-        return self._result(raw, s, bufs)
+                            self.stream_pad(s)[0]), tag)
+        return self._launch(
+            "matmul", lambda a, x, out=None: mm(a, x, self.p, out=out),
+            (mat, blocks), lead[:-1] + (mat.shape[-2], s), key, tag)
 
     def circulant_encode(self, data, c, *, tag: Optional[str] = None,
                          ) -> PlanResult:
         """The paper's eq. (2) encode; the coefficient tuple is part of the
         plan key."""
-        bufs: list = []
-        data = self._stage(data, bufs)
         c = tuple(int(x) for x in c)
-        s = data.shape[-1]
-        if not _ENABLED:
-            return self._result(
-                self.backend.circulant_encode(data, c, self.p), s, bufs)
-        key = self._tagged(("circ", data.shape[0], c, self.bucket(s)), tag)
-        raw = self._run(
-            key, lambda: self.backend.circulant_encode(data, c, self.p), tag)
-        return self._result(raw, s, bufs)
+        enc = self.backend.circulant_encode
+        data = self._prep(data)
+        key = self._tagged(("circ", data.shape[0], c,
+                            self.stream_pad(data.shape[-1])[0]), tag)
+        return self._launch(
+            "circulant_encode", lambda d, out=None: enc(d, c, self.p, out=out),
+            (data,), tuple(data.shape), key, tag)
 
     def regenerate(self, rmat, r_prev, next_data) -> PlanResult:
         """The fused (2, k+1) repair-matrix application: one matmul launch
-        over the row sources (r_prev, next_data), one plan per (k,
-        bucket)."""
-        bufs: list = []
+        per shard over the row sources (r_prev, next_data), one plan per
+        (k, bucket)."""
         rmat = as_int32(rmat, self.p, self.device)
-        r_prev = self._stage(r_prev, bufs)
-        next_data = self._stage(next_data, bufs)
+        r_prev, next_data = self._prep(r_prev), self._prep(next_data)
         s = r_prev.shape[-1]
-        fn = self._regen_fn()
-        if not _ENABLED:
-            return self._result(fn(rmat, r_prev, next_data), s, bufs)
-        key = ("regen", next_data.shape[0], self.bucket(s))
-        raw = self._run(key, lambda: fn(rmat, r_prev, next_data))
-        return self._result(raw, s, bufs)
+        key = ("regen", next_data.shape[0], self.stream_pad(s)[0])
+        return self._launch("regenerate", self._regen_fn(),
+                            (rmat, r_prev, next_data), (rmat.shape[0], s),
+                            key)
 
     def regenerate_batch(self, rmat, r_prevs, next_data) -> PlanResult:
-        """Batched fused regeneration — one matmul launch for all F failed
-        nodes.  Both variable axes are bucketed in the plan key (stream on
-        the symbol ladder, F on the batch ladder); ``host()`` returns the
-        exact (F, 2, S) stack."""
-        bufs: list = []
+        """Batched fused regeneration — one matmul launch per shard for
+        all F failed nodes.  Both variable axes are bucketed in the plan
+        key (stream on the symbol ladder, F on the batch ladder);
+        ``host()`` returns the exact (F, 2, S) stack."""
         rmat = as_int32(rmat, self.p, self.device)
-        r_prevs = self._stage(r_prevs, bufs)
-        next_data = self._stage(next_data, bufs)
+        r_prevs, next_data = self._prep(r_prevs), self._prep(next_data)
         s = r_prevs.shape[-1]
         f, k = next_data.shape[0], next_data.shape[1]
-        fn = self._regen_fn()
-        if not _ENABLED:
-            return self._result(fn(rmat, r_prevs, next_data), s, bufs,
-                                batch=f)
-        key = ("regen_batch", self.batch_bucket(f), k, self.bucket(s))
-        raw = self._run(key, lambda: fn(rmat, r_prevs, next_data))
-        return self._result(raw, s, bufs, batch=f)
+        key = ("regen_batch", self.batch_bucket(f), k, self.stream_pad(s)[0])
+        return self._launch("regenerate_batch", self._regen_fn(),
+                            (rmat, r_prevs, next_data),
+                            (f, rmat.shape[0], s), key, batch=f)
 
     def matmul_batch(self, mats, blocks, *,
                      tag: Optional[str] = None) -> PlanResult:
         """Per-element batched (q, d) @ (d, S) mod p — the coalesced
         regeneration for families without a node-invariant repair matrix
-        (product-matrix MSR): one launch with one matrix per element.
+        (product-matrix MSR): one launch per shard with one matrix per
+        element.
 
         mats: (F, q, d); blocks: (F, d, S).  Both the batch and the stream
         axis are bucketed in the plan key; ``host()`` returns the exact
@@ -466,18 +547,14 @@ class PlanCache:
             raise ValueError(f"matmul_batch needs (F, q, d) mats and "
                              f"(F, d, S) blocks, got {tuple(ms)} / "
                              f"{tuple(bs)}")
-        bufs: list = []
         mats = as_int32(mats, self.p, self.device)
-        blocks = self._stage(blocks, bufs)
         f, s = bs[0], bs[-1]
-        if not _ENABLED:
-            return self._result(self.backend.matmul(mats, blocks, self.p),
-                                s, bufs, batch=f)
+        mm = self.backend.matmul
         key = self._tagged(("matmul_batch", tuple(mats.shape[1:]),
-                            self.batch_bucket(f), self.bucket(s)), tag)
-        raw = self._run(key, lambda: self.backend.matmul(mats, blocks,
-                                                         self.p), tag)
-        return self._result(raw, s, bufs, batch=f)
+                            self.batch_bucket(f), self.stream_pad(s)[0]), tag)
+        return self._launch(
+            "matmul_batch", lambda a, x, out=None: mm(a, x, self.p, out=out),
+            (mats, self._prep(blocks)), (f, ms[1], s), key, tag, batch=f)
 
     def _regen_fn(self):
         return make_regen_fn(self.backend.matmul, self.p)
@@ -489,11 +566,16 @@ def _donation(donate: Optional[bool], device: torch.device) -> bool:
     return device.type != "cpu" if donate is None else bool(donate)
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None and mesh != 1:
-        raise NotImplementedError(
-            "stream-axis mesh sharding is not ported yet; pass mesh=None "
-            "(or 1)")
+def _normalize_mesh(mesh, device):
+    """The reference's normalization: ``mesh`` coerced to a StreamMesh
+    (or None), ``device`` following the mesh (its first device; another
+    raises), then a 1-shard mesh dropped — so ``mesh=1`` gives the plain
+    unsharded planner."""
+    mesh = as_stream_mesh(mesh)
+    device = mesh_device(mesh, device)
+    if mesh is not None and mesh.is_trivial:
+        mesh = None
+    return mesh, device
 
 
 # --------------------------------------------------------------- registry
@@ -501,20 +583,23 @@ def get_planner(backend, p: int, *, bucket_min: int = BUCKET_MIN,
                 bucket_ratio: float = BUCKET_RATIO,
                 donate: Optional[bool] = None, mesh=None,
                 device=None) -> PlanCache:
-    """The shared PlanCache for (backend, p, ladder, donation, device):
-    every code and engine on the same backend and device shares one plan
-    cache.  ``donate`` is recorded only (see :class:`PlanCache`)."""
-    _check_mesh(mesh)
+    """The shared PlanCache for (backend, p, ladder, donation, mesh,
+    device): every code and engine on the same backend, mesh and device
+    shares one plan cache.  A 1-shard mesh is no mesh, so ``mesh=1``
+    returns the unsharded planner.  ``donate`` is recorded only (see
+    :class:`PlanCache`)."""
+    mesh, device = _normalize_mesh(mesh, device)
     dev = resolve_device(device)
-    donate = _donation(donate, dev)
+    donate = False if mesh is not None else _donation(donate, dev)
     key = (getattr(backend, "name", id(backend)), int(p), int(bucket_min),
-           float(bucket_ratio), donate, str(dev))
+           float(bucket_ratio), donate,
+           None if mesh is None else mesh.key(), str(canonical_device(dev)))
     with _LOCK:
         pc = _REGISTRY.get(key)
         if pc is None:
             pc = PlanCache(backend, p, bucket_min=bucket_min,
                            bucket_ratio=bucket_ratio, donate=donate,
-                           device=dev)
+                           mesh=mesh, device=dev)
             _REGISTRY[key] = pc
         return pc
 

@@ -65,19 +65,21 @@ def fold_count(backend_name: str, p: int, k: int) -> int:
 class GFBackend:
     """One exact implementation of the three GF primitives on tensors."""
     name: str
-    matmul: Callable            # (a, b | sources, p) -> (m, s) or (F, m, s)
-    circulant_encode: Callable  # (data, c: tuple, p) -> (n, s) int32
+    matmul: Callable            # (a, b | sources, p, out=None)
+                                # -> (m, s) or (F, m, s)
+    circulant_encode: Callable  # (data, c: tuple, p, out=None) -> (n, s)
     axpy: Callable              # (y, alpha, x, p) -> int32
 
     def msr_matmul(self):
         """Adapter for DoubleCirculantMSR(..., matmul=...)."""
         return lambda a, b, p: self.matmul(a, b, p)
 
-    def planner(self, p: int, device, **plan_kwargs):
+    def planner(self, p: int, device=None, *, mesh=None, **plan_kwargs):
         """The shared execution planner for this backend at modulus p on
-        ``device`` (lazy import: the exec layer sits above kernels)."""
+        ``device``, sharded over ``mesh`` when one is given (lazy import:
+        the exec layer sits above kernels)."""
         from repro_torch.exec.plan import get_planner
-        return get_planner(self, p, device=device, **plan_kwargs)
+        return get_planner(self, p, device=device, mesh=mesh, **plan_kwargs)
 
 
 _REGISTRY: dict[str, GFBackend] = {}

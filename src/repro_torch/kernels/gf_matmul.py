@@ -13,6 +13,12 @@ axis: a decode hands it the data and redundancy downloads where they
 lie, and the fused regenerate its r_prev row beside the k helper rows,
 with no concatenated copy.
 
+Every stream operand, and the output, takes a row pitch: a column window
+of a larger tensor (unit stride along the stream, any pitch between
+rows, ``ref.row_layout``) is read or written where it lies.  A shard of
+a stream-axis mesh reads its window of the operands and writes its
+window of the output (``out=``) with no copy.
+
 On a CUDA tensor the wrapper launches the kernel and raises if the launch
 fails; on a CPU tensor it runs the plain version, ``ref.gf_matmul_ref``.
 There is no fallback between the two.
@@ -25,15 +31,17 @@ import torch
 
 from . import _build
 from .envelope import int32_lazy_terms, require_int32_envelope
-from .ref import gf_matmul_ref, matmul_sources
+from .ref import gf_matmul_ref, matmul_sources, row_layout
 
-# gf_matmul_launch(a, out, src, bstride, rows, nsrc, batch, m, k, s,
-#                  a_bstride, p, lazy, stream)
+# gf_matmul_launch(a, out, src, bstride, ld, rows, nsrc, batch, m, k, s,
+#                  a_bstride, out_ld, out_bstride, p, lazy, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p,
              ctypes.POINTER(ctypes.c_void_p),
+             ctypes.POINTER(ctypes.c_longlong),
              ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
 
 
@@ -56,10 +64,12 @@ def _check(a, sources: tuple, p: int) -> None:
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-        if not t.is_contiguous():
+        if t is a and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != a.device:
             raise ValueError(f"a on {a.device}, {name} on {t.device}")
+        if t is not a:
+            row_layout(t, name)
     shapes = [tuple(x.shape) for x in sources]
     dims = {x.dim() for x in sources}
     if a.dim() not in (2, 3) or len(dims) != 1 or not dims <= {2, 3} or \
@@ -77,19 +87,22 @@ def _check(a, sources: tuple, p: int) -> None:
                          f"{shapes}")
 
 
-def gf_matmul(a: torch.Tensor, b, p: int = 257) -> torch.Tensor:
+def gf_matmul(a: torch.Tensor, b, p: int = 257, out=None) -> torch.Tensor:
     """(a @ b) mod p, exact.
 
-    a: (m, k) or (F, m, k) int32.  b: (k, s) or (F, k, s) int32, or a
-    tuple of 1-4 row sources (r_i, s) or (F, r_i, s) with equal s (and F)
-    and sum(r_i) = k; the result is bit-identical to passing
-    ``torch.cat(b, dim=-2)``.  Every tensor contiguous and on one device.
-    Returns (m, s) or (F, m, s) int32.  Inputs need not be reduced mod p.
+    a: (m, k) or (F, m, k) int32, contiguous.  b: (k, s) or (F, k, s)
+    int32, or a tuple of 1-4 row sources (r_i, s) or (F, r_i, s) with
+    equal s (and F) and sum(r_i) = k; the result is bit-identical to
+    passing ``torch.cat(b, dim=-2)``.  Each source may be a column window
+    (``ref.row_layout``); every tensor on one device.  Returns (m, s) or
+    (F, m, s) int32, written into ``out`` (a window of that shape, which
+    must not overlap itself) when given.  Inputs need not be reduced mod
+    p.
     """
     sources = matmul_sources(b)
     _check(a, sources, p)
     if a.device.type == "cpu":
-        return gf_matmul_ref(a, sources, p)
+        return gf_matmul_ref(a, sources, p, out=out)
     if a.device.type != "cuda":
         raise ValueError(f"gf_matmul runs on cuda or cpu, not {a.device}")
     if p < 2:
@@ -99,22 +112,32 @@ def gf_matmul(a: torch.Tensor, b, p: int = 257) -> torch.Tensor:
     f = head.shape[0] if batched else 1
     m, k = a.shape[-2], a.shape[-1]
     s = head.shape[-1]
-    out = torch.empty(((f,) if batched else ()) + (m, s), dtype=torch.int32,
-                      device=a.device)
+    shape = ((f,) if batched else ()) + (m, s)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    elif tuple(out.shape) != shape or out.dtype != torch.int32 or \
+            out.device != a.device:
+        raise ValueError(f"out must be int32 {shape} on {a.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    out_ld, out_bstride = row_layout(out, "out", out=True)
     if out.numel() == 0 or k == 0:
         return out.zero_()
     sources = [x for x in sources if x.shape[-2] > 0]
     n = len(sources)
+    layouts = [row_layout(x, "b") for x in sources]
     ptrs = (ctypes.c_void_p * n)(*[x.data_ptr() for x in sources])
     rows = (ctypes.c_int * n)(*[x.shape[-2] for x in sources])
+    lds = (ctypes.c_longlong * n)(*[ld for ld, _ in layouts])
     bstrides = (ctypes.c_longlong * n)(
-        *[x.shape[-2] * s if batched else 0 for x in sources])
+        *[bs if batched else 0 for _, bs in layouts])
     lib, fn = _entry("gf_matmul_launch", _ARGTYPES)
     a_bstride = m * k if a.dim() == 3 else 0
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), out.data_ptr(), ptrs, bstrides, rows, n, f, m,
-                 k, s, a_bstride, p, int32_lazy_terms(p), stream)
+        err = fn(a.data_ptr(), out.data_ptr(), ptrs, bstrides, lds, rows, n,
+                 f, m, k, s, a_bstride, out_ld,
+                 out_bstride if batched else 0, p, int32_lazy_terms(p),
+                 stream)
     _build.check(lib, err, "gf_matmul")
     gf_matmul.launches += 1
     return out

@@ -6,8 +6,10 @@ Numerics: logits are a bf16 product cast to fp32, softmax in fp32,
 probabilities cast to the values' dtype, values in bf16 — the reference's
 cast points.  Cache updates return new tensors, as the reference's
 ``dynamic_update_slice`` does, so a cache handed back by one call is never
-changed by a later one.  The reference's sharding hints are the identity
-without a mesh; the port has no mesh, so it has none.
+changed by a later one.  The reference's sharding hints
+(``sharding.ctx.constrain``) are the identity without a model-parallel
+mesh; the port has only the stream-axis mesh of the storage layer
+(``repro_torch.sharding.mesh``), so it has none.
 """
 from __future__ import annotations
 

@@ -227,13 +227,18 @@ class CodedObjectStore:
         Deterministic service-time model for read/repair latencies.
     backend : str, optional
         Pin a GF dispatch backend for encode/decode.
-    mesh : None or 1
-        Stream-axis sharding is not ported yet; anything else raises.
+    mesh : StreamMesh | int | None, optional
+        Stream-axis device mesh for every planned GF dispatch — put
+        encode, degraded-read decode, coalesced repair — forwarded to the
+        code (a 1-shard mesh is the plain path).  None inherits the
+        ambient ``repro_torch.sharding.mesh.use_mesh(...)`` scope.
+        Shares stay numpy on the host, so CRC ledgers and receipts are
+        the unsharded store's.
     device : torch.device or str, optional
         Where encode, decode and regenerate compute: None is the CUDA
-        card (raises on a host without one), ``"cpu"`` the plain torch
-        versions.  Ignored when ``code`` is given (the code owns its
-        device).
+        card (raises on a host without one) or the mesh's first device,
+        ``"cpu"`` the plain torch versions.  Ignored when ``code`` is
+        given (the code owns its device).
     io_workers, pipeline_depth : int
         The store's overlapped I/O⇄compute engine (DESIGN.md §11.3):
         share placement / download gathering runs on ``io_workers`` pool
@@ -281,9 +286,6 @@ class CodedObjectStore:
                  faults: Optional[FaultInjector] = None,
                  retry: Optional[RetryPolicy] = None,
                  mesh=None, device=None):
-        if mesh is not None and mesh != 1:
-            raise NotImplementedError(
-                "stream-axis mesh sharding is not ported yet; pass mesh=None")
         self.spec = spec
         self.k, self.n, self.p = spec.k, spec.n, spec.p
         self.n_nodes = int(n_nodes if n_nodes is not None else spec.n)
@@ -296,7 +298,7 @@ class CodedObjectStore:
         self.stripes = StripeManager(spec, self.layout,
                                      stripe_symbols=stripe_symbols,
                                      code=code, backend=backend,
-                                     device=device)
+                                     mesh=mesh, device=device)
         self.code = self.stripes.code
         self.S = self.stripes.stripe_symbols
         self.link = link or LinkModel()
@@ -506,14 +508,16 @@ class CodedObjectStore:
         """The (cached) stripe codec of a code class.  The default class
         wraps the store's live code instance, so its planner, decode
         inverses and plan keys are shared with the legacy paths; other
-        classes build their family from the registry on the same layout
-        and device (raises if the layout cannot place them rack-safely)."""
+        classes build their family from the registry on the same layout,
+        mesh and device (raises if the layout cannot place them
+        rack-safely)."""
         codec = self._codecs.get(cc.key())
         if codec is None:
             if self._is_default(cc):
                 code = DoubleCirculantCode(cc, inner=self.code)
             else:
-                code = make_code(cc, device=self.code.device)
+                code = make_code(cc, mesh=self.code.mesh,
+                                 device=self.code.device)
             codec = StripeCodec(code, self.layout, stripe_symbols=self.S)
             self._codecs[cc.key()] = codec
         return codec

@@ -91,11 +91,13 @@ class StripeManager:
         Share an existing code instance (and its decode-inverse cache).
     backend : str, optional
         Pin a dispatch backend by name (forwarded to the code).
-    mesh : None or 1
-        Forwarded to the code; stream-axis sharding is not ported yet.
+    mesh : StreamMesh | int | None, optional
+        Stream-axis device mesh forwarded to a new code (None inherits
+        the ambient ``use_mesh(...)`` scope).
     device : torch.device or str, optional
-        Where a new code computes (None is the card); ignored when
-        ``code`` is given (the code owns its device).
+        Where a new code computes (None is the card, or the mesh's first
+        device); ignored when ``code`` is given (the code owns its
+        device).
     """
 
     def __init__(self, spec: CodeSpec, layout: placement.RackLayout, *,

@@ -479,9 +479,21 @@ def test_store_backed_save_restore_over_twin_stores():
 
 
 def test_checkpointer_validation(tmp_path):
-    with pytest.raises(NotImplementedError):
-        tck.MSRCheckpointer(tmp_path, TSpec.make(2, 257), mesh=2,
-                            device="cpu")
+    # a 2-shard mesh (on ["cpu"] * 2) now works: the step directory it
+    # writes is the unsharded checkpointer's, byte for byte
+    from repro_torch.sharding.mesh import StreamMesh
+    digests = []
+    for name, mesh in (("plain", None),
+                       ("meshed", StreamMesh(2, devices=["cpu"] * 2))):
+        ck = tck.MSRCheckpointer(tmp_path / name, TSpec.make(2, 257),
+                                 mesh=mesh, save_tile_symbols=64,
+                                 device="cpu")
+        assert (ck.code.planner.mesh is None) == (mesh is None)
+        ck.save(1, as_torch(make_state()))
+        ck.close()
+        digests.append(chip_smoke.ckpt_digest(tmp_path / name
+                                              / "step_000001"))
+    assert digests[0] == digests[1]
     with pytest.raises(ValueError):
         tck.MSRCheckpointer(tmp_path, None, device="cpu")
     st = tstore.CodedObjectStore(TSpec.make(2, 257), device="cpu")

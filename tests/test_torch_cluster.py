@@ -261,10 +261,10 @@ def test_degraded_read_is_one_launch_over_row_sources(data, monkeypatch):
     calls = []
     mm = sim.code.planner.backend.matmul
 
-    def spy(a, b, p):
+    def spy(a, b, p, out=None):
         calls.append(tuple(tuple(x.shape) for x in b)
                      if isinstance(b, tuple) else tuple(b.shape))
-        return mm(a, b, p)
+        return mm(a, b, p, out=out)
 
     monkeypatch.setattr(sim.code.planner, "backend", dataclasses.replace(
         sim.code.planner.backend, matmul=spy))

@@ -81,8 +81,18 @@ def test_registry_and_meta_match():
         make_code(CodeClass(FAMILY_DOUBLE_CIRCULANT, 6, 2, 3), device="cpu")
     with pytest.raises(ValueError):
         make_code(CodeClass(FAMILY_PRODUCT_MATRIX, 8, 4, 5), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_code(CodeClass(*GRID[2]), device="cpu", mesh=2)
+    # a 2-shard mesh (on ["cpu"] * 2) builds and encodes as unsharded
+    from repro_torch.sharding.mesh import StreamMesh
+    mesh2 = StreamMesh(2, devices=["cpu"] * 2)
+    meshed = make_code(CodeClass(*GRID[2]), device="cpu", mesh=mesh2)
+    plain = make_code(CodeClass(*GRID[2]), device="cpu")
+    assert meshed.mesh is mesh2
+    assert meshed.planner.mesh.key() == mesh2.key()
+    assert plain.mesh is None and meshed.planner is not plain.planner
+    flat = np.random.default_rng(3).integers(
+        0, 256, size=(plain.data_blocks, 1001)).astype(np.int32)
+    np.testing.assert_array_equal(meshed.encode_derived_planned(flat).host(),
+                                  plain.encode_derived_planned(flat).host())
 
 
 def test_helpers_match():

@@ -649,3 +649,202 @@ def test_tiny_train_is_bit_deterministic_on_card(cuda):
     lb, tb = tree_flatten(states[1])
     assert ta == tb and la[0].device.type == "cuda"
     assert all(torch.equal(a, b) for a, b in zip(la, lb))
+
+
+# ----------------------------------------------- row pitch and the mesh
+def home(cuda):
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.parametrize("lo,width", [(0, 4096), (4, 1000), (3, 1001),
+                                      (8, 2)])
+def test_kernels_read_and_write_windows_in_place(cuda, lo, width):
+    """The row pitch: each kernel on a column window of a larger operand,
+    writing a column window of a larger output (aligned and misaligned
+    starts, a ragged width), equal to its plain version, and nothing
+    outside the window written."""
+    big_s = lo + width + 7
+    spec = CodeSpec.make(8, P)
+    data = on(cuda, rand((16, big_s), P, lo))
+    win = data[:, lo:lo + width]
+    out = torch.full((16, big_s), -1, dtype=torch.int32, device=cuda)
+    n0 = circulant_encode.launches
+    circulant_encode(win, spec.c, P, out=out[:, lo:lo + width])
+    assert circulant_encode.launches == n0 + 1
+    assert torch.equal(out[:, lo:lo + width],
+                       ref.circulant_encode_ref(win, spec.c, P))
+    assert int(out[:, :lo].ne(-1).sum() + out[:, lo + width:].ne(-1).sum()) \
+        == 0
+    a = on(cuda, rand((2, 9), P, 1))
+    r_prev = on(cuda, rand((big_s,), P, 2))[lo:lo + width].unsqueeze(0)
+    srcs = (r_prev, win[:8])
+    out = torch.full((2, big_s), -1, dtype=torch.int32, device=cuda)
+    gf_matmul(a, srcs, P, out=out[:, lo:lo + width])
+    assert torch.equal(out[:, lo:lo + width], ref.gf_matmul_ref(a, srcs, P))
+    assert int(out[:, :lo].ne(-1).sum() + out[:, lo + width:].ne(-1).sum()) \
+        == 0
+    nd = on(cuda, rand((4, 8, big_s), P, 3))[..., lo:lo + width]
+    rp = on(cuda, rand((4, big_s), P, 4))[:, lo:lo + width].unsqueeze(-2)
+    out = torch.full((4, 2, big_s), -1, dtype=torch.int32, device=cuda)
+    gf_matmul(a, (rp, nd), P, out=out[..., lo:lo + width])
+    assert torch.equal(out[..., lo:lo + width],
+                       ref.gf_matmul_ref(a, (rp, nd), P))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("m", [2, 4, 8])
+def test_meshed_planner_on_card_matches_unsharded(cuda, m):
+    """Every planned op over a mesh of m shards on one card (numpy staged
+    per shard; card tensors read in place through the pitch), equal to
+    the unsharded planner, one launch per non-empty shard — ragged and
+    empty last shards included."""
+    from repro_torch.sharding.mesh import StreamMesh
+    mesh = StreamMesh(m, devices=[home(cuda)] * m)
+    be = dispatch.get("cuda")
+    plain = tplan.get_planner(be, P)
+    pl = tplan.get_planner(be, P, mesh=mesh)
+    assert pl is not plain and pl.mesh.size == m
+    assert tplan.get_planner(be, P, mesh=StreamMesh(1, devices=[home(cuda)])) \
+        is plain
+    spec = CodeSpec.make(8, P)
+    from repro_torch.core.repair import build_repair_matrix
+    rmat = build_repair_matrix(spec).astype(np.int32)
+    mat = rand((16, 16), P, 0)
+    for s in (4099, 4096, 5, m - 1):
+        shards = sum(hi > lo for lo, hi in mesh.windows(s))
+        data = rand((16, s), P, s)
+        rps, nds = rand((4, s), P, s + 1), rand((4, 8, s), P, s + 2)
+        for x in (data, on(cuda, data)):
+            n0 = circulant_encode.launches
+            got = pl.circulant_encode(x, spec.c).host()
+            assert circulant_encode.launches == n0 + shards
+            np.testing.assert_array_equal(
+                got, plain.circulant_encode(data, spec.c).host())
+        for fn in (lambda q: q.matmul(mat, on(cuda, data)),
+                   lambda q: q.regenerate(rmat, on(cuda, rps[0]),
+                                          on(cuda, nds[0])),
+                   lambda q: q.regenerate_batch(rmat, rps, nds),
+                   lambda q: q.matmul_batch(rand((4, 2, 8), P, 5), nds)):
+            n0 = gf_matmul.launches
+            got = fn(pl).host()
+            assert gf_matmul.launches == n0 + shards
+            np.testing.assert_array_equal(got, fn(plain).host())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("first", ["cuda", "cpu"])
+def test_mixed_host_and_card_mesh_matches_unsharded(cuda, first):
+    """A mesh whose shards alternate between the card and the host, the
+    card first or the host first: every shard away from the result's
+    device gets its operands copied to it and its result copied back,
+    replicas are made per device, and the staging buffers are released
+    only after every device's event.  Every planned op, with host numpy,
+    card and host tensor operands, equals the unsharded planner; the
+    kernels launch once per non-empty card shard (the host shards run the
+    plain versions).  The ring encode and int8_ring_mean over the same
+    alternation equal their one-device runs."""
+    from repro_torch.core.repair import build_repair_matrix
+    from repro_torch.core.ring import ring_encode
+    from repro_torch.launch.mesh import make_host_mesh, make_storage_mesh
+    from repro_torch.optim.compression import int8_ring_mean
+    from repro_torch.sharding.mesh import StreamMesh
+    card, host = home(cuda), torch.device("cpu")
+    pair = [card, host] if first == "cuda" else [host, card]
+    mesh = StreamMesh(4, devices=pair * 2)
+    be = dispatch.get("cuda")
+    plain = tplan.get_planner(be, P)
+    pl = tplan.get_planner(be, P, mesh=mesh)
+    assert pl.device == pair[0] and pl.mesh.size == 4
+    spec = CodeSpec.make(8, P)
+    rmat = build_repair_matrix(spec).astype(np.int32)
+    mat = rand((16, 16), P, 0)
+    for s in (4099, 6, 3):
+        on_card = sum(hi > lo and d == card for d, (lo, hi)
+                      in zip(mesh.devices, mesh.windows(s)))
+        data = rand((16, s), P, s)
+        rps, nds = rand((4, s), P, s + 1), rand((4, 8, s), P, s + 2)
+        mats = rand((4, 2, 8), P, 5)
+        for where in ("numpy", card, host):
+            def x(a):
+                return a if where == "numpy" else on(where, a)
+            n0 = circulant_encode.launches
+            got = pl.circulant_encode(x(data), spec.c).host()
+            assert circulant_encode.launches == n0 + on_card
+            np.testing.assert_array_equal(
+                got, plain.circulant_encode(data, spec.c).host())
+            for fn in (lambda q: q.matmul(mat, x(data)),
+                       lambda q: q.matmul(mat[:, :9], (x(rps[:1]),
+                                                       x(data[:8]))),
+                       lambda q: q.regenerate(rmat, x(rps[0]), x(nds[0])),
+                       lambda q: q.regenerate_batch(rmat, x(rps), x(nds)),
+                       lambda q: q.matmul_batch(mats, x(nds))):
+                n0 = gf_matmul.launches
+                res = fn(pl)
+                assert res.raw.device == pair[0]
+                got = res.host()
+                assert gf_matmul.launches == n0 + on_card
+                np.testing.assert_array_equal(got, fn(plain).host())
+    assert pl.staging.stats().in_use == 0
+    ring = make_storage_mesh(16, devices=pair * 8)
+    data = on(card, rand((16, 1001), 256, 1))
+    want = circulant_encode(data, spec.c, P)
+    for byte_wire in (False, True):
+        got = ring_encode(data, spec, ring, byte_wire=byte_wire)
+        assert got.device == pair[0] and torch.equal(got.to(card), want)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, 333, 7)).astype(np.float32))
+    got = int8_ring_mean(x.to(card), make_host_mesh(devices=pair * 2),
+                         "data")
+    want = int8_ring_mean(x, make_host_mesh(devices=[host] * 4), "data")
+    assert got.device == pair[0] and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("m", [1, 4])
+def test_meshed_caller_staged_buffer_is_dmad_as_it_lies(cuda, m):
+    """Under a mesh on one card a caller-staged pool buffer is DMA'd once,
+    as it lies, and each shard reads its window of it on the card: no
+    second host copy, and the buffer stays the caller's."""
+    from repro_torch.sharding.mesh import StreamMesh
+    pl = tplan.get_planner(dispatch.get("cuda"), P, bucket_min=32,
+                           mesh=StreamMesh(m, devices=[home(cuda)] * m))
+    _, pad = pl.stream_pad(1001)
+    buf = pl.staging.acquire((8, pad), np.int32)
+    buf[...] = rand((8, pad), P, 4)
+    mat = rand((3, 8), P, 5)
+    n0, st0 = pl.staged_in_place, pl.staging.stats()
+    n1 = gf_matmul.launches
+    out = pl.matmul(mat, buf).host()
+    st1 = pl.staging.stats()
+    assert pl.staged_in_place == n0 + 1 and gf_matmul.launches == n1 + m
+    assert (st1.hits, st1.misses, st1.in_use) == (st0.hits, st0.misses,
+                                                  st0.in_use)
+    np.testing.assert_array_equal(
+        out, (mat.astype(np.int64) @ buf.astype(np.int64)) % P)
+    pl.staging.release(buf)
+
+
+def test_ring_encode_and_int8_ring_mean_on_card(cuda):
+    """The ring encode over 16 nodes on one card equals the circulant
+    encode kernel on both wires; int8_ring_mean on the card equals its
+    run on the CPU bit for bit."""
+    from repro_torch.core.ring import LinkTraffic, ring_encode
+    from repro_torch.launch.mesh import make_host_mesh, make_storage_mesh
+    from repro_torch.optim.compression import int8_ring_mean
+    spec = CodeSpec.make(8, P)
+    mesh = make_storage_mesh(16, devices=[home(cuda)] * 16)
+    data = on(cuda, rand((16, 5003), 256, 1))
+    want = circulant_encode(data, spec.c, P)
+    for byte_wire in (False, True):
+        traffic = LinkTraffic()
+        got = ring_encode(data, spec, mesh, byte_wire=byte_wire,
+                          traffic=traffic)
+        assert got.device == home(cuda) and torch.equal(got, want)
+        assert set(traffic.blocks.values()) == {8}
+        assert set(traffic.bytes.values()) == {
+            8 * 5003 * (1 if byte_wire else 4)}
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, 333, 7)).astype(np.float32))
+    got = int8_ring_mean(x.to(cuda), make_host_mesh(
+        devices=[home(cuda)] * 4), "data")
+    want = int8_ring_mean(x, make_host_mesh(devices=["cpu"] * 4), "data")
+    assert torch.equal(got.cpu(), want)

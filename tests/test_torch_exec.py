@@ -169,11 +169,22 @@ def test_registry_shares_per_backend_and_device():
     assert a is tplan.get_planner(be, P, device=torch.device("cpu"))
     assert a is not tplan.get_planner(dispatch.get("cuda"), P, device="cpu")
     assert tplan.plan_stats().compiles >= a.plan_stats().compiles
-    with pytest.raises(NotImplementedError):
-        tplan.get_planner(be, P, mesh=2, device="cpu")
-    assert tplan.get_planner(be, P, mesh=1, device="cpu") is a
-    with pytest.raises(NotImplementedError):
-        DoubleCirculantMSR(SPEC, mesh=4, device="cpu")
+    # a mesh of 2 (on ["cpu"] * 2) is a planner of its own whose results
+    # equal the unsharded one's; a 1-shard mesh is the unsharded planner
+    from repro_torch.sharding.mesh import StreamMesh
+    cpus = lambda m: StreamMesh(m, devices=["cpu"] * m)  # noqa: E731
+    m2 = tplan.get_planner(be, P, mesh=cpus(2), device="cpu")
+    assert m2 is not a and m2.mesh.size == 2
+    assert m2 is tplan.get_planner(be, P, mesh=cpus(2))
+    mat, data = rand((3, 8), P, 1), rand((8, 1001), P, 2)
+    np.testing.assert_array_equal(m2.matmul(mat, data).host(),
+                                  a.matmul(mat, data).host())
+    assert tplan.get_planner(be, P, mesh=cpus(1), device="cpu") is a
+    code = DoubleCirculantMSR(SPEC, mesh=cpus(4), device="cpu")
+    assert code.planner.mesh.size == 4
+    np.testing.assert_array_equal(
+        code.encode_planned(data).host(),
+        DoubleCirculantMSR(SPEC, device="cpu").encode_planned(data).host())
 
 
 def test_code_planned_paths_match_reference():

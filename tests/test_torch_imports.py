@@ -34,7 +34,8 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.launch.steps", "repro_torch.train.loop",
             "repro_torch.train.tiny_lm", "repro_torch.models.moe",
             "repro_torch.models.rglru", "repro_torch.models.xlstm",
-            "repro_torch.models.frontend"} <= set(mods)
+            "repro_torch.models.frontend", "repro_torch.sharding.mesh",
+            "repro_torch.launch.mesh", "repro_torch.core.ring"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

@@ -123,8 +123,19 @@ def test_ef_compress_and_trees_over_steps():
 
 
 def test_int8_ring_mean_waits_for_the_multi_device_layer():
-    with pytest.raises(NotImplementedError, match="A12"):
-        tcomp.int8_ring_mean(torch.zeros(2, 4), None, "data")
+    """The multi-device layer is here: int8_ring_mean on a mesh of 2
+    (["cpu"] * 2) returns the mean in every row, and a leading dim that
+    is not the axis size raises."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(devices=["cpu"] * 2)
+    x = torch.tensor([[1.0, -2.0, 3.0], [3.0, 2.0, -1.0]])
+    got = tcomp.int8_ring_mean(x, mesh, "data")
+    assert got.shape == x.shape
+    assert torch.equal(got[0], got[1])
+    scale = float(x.abs().max()) / 127
+    assert float((got[0] - x.mean(0)).abs().max()) <= 10 * scale
+    with pytest.raises(ValueError, match="leading dim"):
+        tcomp.int8_ring_mean(torch.zeros(3, 4), mesh, "data")
 
 
 # ------------------------------------------------------------------ AdamW

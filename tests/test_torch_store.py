@@ -420,8 +420,16 @@ def test_production_width_odd_stripe():
 
 
 def test_store_validation():
-    with pytest.raises(NotImplementedError):
-        tstore.CodedObjectStore(TSpec.make(2, 257), mesh=2, device="cpu")
+    # a 2-shard mesh (on ["cpu"] * 2) stores the unsharded store's shares
+    from repro_torch.sharding.mesh import StreamMesh
+    stores = [tstore.CodedObjectStore(TSpec.make(2, 257), mesh=mesh,
+                                      stripe_symbols=64, device="cpu")
+              for mesh in (None, StreamMesh(2, devices=["cpu"] * 2))]
+    assert stores[1].code.mesh.size == 2
+    for st in stores:
+        st.put("x", blob(1000, 3))
+    assert state(stores[0]) == state(stores[1])
+    assert stores[1].get("x") == blob(1000, 3)
     with pytest.raises(ValueError):
         tstore.CodedObjectStore(TSpec.make(2, 257), n_nodes=3,
                                 device="cpu")
