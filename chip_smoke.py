@@ -7,7 +7,7 @@ Run from the root of a checkout:
                           [--ckpt-mib 512] [--serve-mib 256]
 
 It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
-``build/kernels/`` and runs fourteen phases, each printing one JSON line:
+``build/kernels/`` and runs fifteen phases, each printing one JSON line:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    both kernels, one nvcc per source, started together;
@@ -145,7 +145,30 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             the card ([8, 4], 120 steps, checkpoints every 20, node 2 lost
             at step 80): one repair event, the loss falls, the final state
             bit-exact with an uninterrupted run, one circulant_encode
-            launch per save tile and gf_matmul at the repair.
+            launch per save tile and gf_matmul at the repair;
+15. parallel
+            the model-parallel half of the sharding layer on a (data=2,
+            model=2) mesh over the card repeated (four cards where the
+            host has them): the same qwen3-4b (2 of 36 layers) trained 3
+            steps of 2 x 2048 tokens on state laid out by the policy's
+            hybrid specs (heads, FFN and vocab split over model, FSDP
+            over data), then under the dp layout (FSDP over all four),
+            each against the unsharded step with 2 microbatches on the
+            same inputs and initial parameters: loss per step within
+            1e-2, step-1 grads within 3e-2 relative L2 per leaf, step ms
+            and tokens/s, bytes moved between positions (gathers,
+            reduces), bytes per position (device_bytes) against the
+            storage the card holds, peak memory; phase model's
+            parameters read with node 3 lost, laid out by the hybrid
+            specs, serving 4 requests of 2048 prompt + 32 new tokens
+            through make_prefill_step / make_decode_step (caches by
+            cache_spec) against the unsharded steps (logits within
+            0.125, greedy tokens equal where the top-2 margin exceeds
+            0.25), prefill ms and decode ms a token; a sharded tiny-LM
+            state saved through MSRCheckpointer (circulant_encode),
+            files equal to an unsharded save's, restored with node 5
+            lost (gf_matmul), re-placed bit-exactly, its next step
+            bit-equal to the step without the round trip.
 
 Then a ``kernels`` JSON line (launches by path), the ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -2117,7 +2140,7 @@ def model_param_bytes(torch, cfg) -> int:
                for x in tree_flatten(params)[0])
 
 
-def phase_model(torch, np, gfm, circ) -> dict:
+def phase_model(torch, np, gfm, circ, keep: dict) -> dict:
     """qwen3-4b at full width (2 of 36 layers) served from its parameters
     in the coded object store, then card logits against the CPU path and
     the reference's known answer, then serve_demo.py's rack kill.  Kernel
@@ -2266,6 +2289,7 @@ def phase_model(torch, np, gfm, circ) -> dict:
                 and leaves_equal(eng.params, params),
                 f"degraded read: gf_matmul launched, every leaf equal: "
                 f"{steps['degraded_read']}")
+        keep["params_node3_lost"] = eng.params
         require(serve("serve_degraded") == healthy,
                 "tokens after the degraded read equal the healthy run's")
         store.replace_node(3)
@@ -3030,6 +3054,369 @@ def phase_train(torch, np, gfm, circ, n_steps: int) -> dict:
     return out
 
 
+PARALLEL_MESH = (2, 2)      # (data, model): [cuda:0] * 4, or 4 distinct cards
+PARALLEL_STEPS = 3          # train steps a layout
+PARALLEL_TWIN_MICRO = 2     # the unsharded twin's microbatches
+PARALLEL_CODE_K = 8         # the sharded checkpoint's [16, 8] code
+PARALLEL_LOST_NODE = 5      # lost at the sharded checkpoint's restore
+PARALLEL_MARGIN = 0.25      # greedy tokens held where the top-2 margin is
+
+
+def parallel_mesh(torch, device: str):
+    """The phase's (data, model) mesh: distinct cards where the host has
+    enough, else the one card repeated (a CPU rehearsal: the host)."""
+    from repro_torch.launch.mesh import checked_mesh
+    n = PARALLEL_MESH[0] * PARALLEL_MESH[1]
+    if device == "cuda" and torch.cuda.device_count() >= n:
+        devs = [torch.device("cuda", i) for i in range(n)]
+    elif device == "cuda":
+        devs = [torch.device("cuda", torch.cuda.current_device())] * n
+    else:
+        devs = [torch.device(device)] * n
+    return checked_mesh(PARALLEL_MESH, ("data", "model"), devs)
+
+
+def phase_parallel(torch, np, gfm, circ, serve_params,
+                   device: str = "cuda") -> dict:
+    """The model-parallel half of the sharding layer on the card, over a
+    (data=2, model=2) mesh.  (a) qwen3-4b at full width (2 of 36 layers)
+    trained by ``make_train_step`` on state laid out by the policy's
+    hybrid specs (TP over model, FSDP over data), 3 steps of 2 x 2048
+    ``batch_at`` tokens, against the unsharded step with 2 microbatches
+    on the same inputs and initial parameters: loss per step, step-1
+    grads per leaf, step ms and tokens/s, bytes moved between positions,
+    bytes held per position against ``device_bytes``, the busy share of
+    one more profiled step.  (b) the same under
+    the dp layout (FSDP over all four positions).  (c) serving: the
+    parameters phase ``model`` read with node 3 lost (``serve_params``),
+    laid out by the hybrid specs, caches by ``cache_spec``;
+    ``make_prefill_step`` and ``make_decode_step`` for 4 requests of 2048
+    prompt + 32 new tokens against the unsharded steps.  (d) a sharded
+    tiny-LM training state saved through ``MSRCheckpointer`` (files
+    equal to an unsharded save's), restored with node 5 lost, re-placed
+    bit-exactly, and its next step bit-equal to the step without the
+    round trip.  Kernel counts set to 0 just before and read just
+    after."""
+    import dataclasses
+    import math
+    import tempfile
+    from repro_torch.checkpoint.msr_checkpoint import MSRCheckpointer
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.circulant import CodeSpec
+    from repro_torch.core.placement import tree_flatten
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch.steps import (accumulate_grads, deterministic,
+                                          make_decode_step,
+                                          make_prefill_step,
+                                          make_train_step,
+                                          pick_microbatches)
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import ctx as shctx
+    from repro_torch.sharding import place, policy
+    from repro_torch.train.tiny_lm import PRESETS
+
+    on_card = device == "cuda"
+    mesh = parallel_mesh(torch, device)
+    cards = sorted({d.index for d in mesh.devices.flat if on_card})
+
+    def sync_s(t0):
+        for i in cards:
+            torch.cuda.synchronize(i)
+        return time.perf_counter() - t0
+
+    def allocated():
+        return sum(torch.cuda.memory_allocated(i) for i in cards)
+
+    def reset_peaks():
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
+
+    def peaks():
+        return {f"cuda:{i}": torch.cuda.max_memory_allocated(i)
+                for i in cards}
+
+    def layout_state(state, mesh, layout):
+        ps = policy.param_specs(state["params"], mesh, layout=layout)
+        return place.place(state, policy.named(
+            {"params": ps, "opt": policy.opt_specs(ps)}, mesh))
+
+    def unique_bytes(tree):
+        seen = {}
+        for x in tree_flatten(tree)[0]:
+            for t in (x.unique() if isinstance(x, place.Sharded) else [x]):
+                seen[t.data_ptr()] = t.numel() * t.element_size()
+        return sum(seen.values())
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def names_of(tree):
+        return tree_flatten(policy.tree_map_with_path(
+            lambda names, _: "/".join(names), tree))[0]
+
+    def whole(tree):
+        return [x.gather() if isinstance(x, place.Sharded) else x
+                for x in tree_flatten(tree)[0]]
+
+    gfm.launches = 0
+    circ.launches = 0
+    cfg = dataclasses.replace(get_config(MODEL_ARCH), n_layers=MODEL_LAYERS)
+    model = Model(cfg)
+    opt_cfg = adamw.AdamWConfig()
+    shape = ShapeConfig("parallel", TRAIN_SEQ, TRAIN_BATCH, "train")
+    out: dict = {"mesh": dict(mesh.shape),
+                 "devices": [str(d) for d in mesh.devices.flat],
+                 "config": cfg.name, "n_layers": cfg.n_layers,
+                 "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                 "choose_layout": policy.choose_layout(cfg, mesh, shape)}
+    require(out["choose_layout"] == "hybrid",
+            f"choose_layout picks hybrid for {cfg.name} on "
+            f"{dict(mesh.shape)}: {out['choose_layout']}")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in batch_at(dcfg, i).items()}
+               for i in range(PARALLEL_STEPS)]
+
+    # (a), (b): train under each layout against the unsharded twin
+    with deterministic():
+        gen = (torch.Generator(device=device).manual_seed(0) if on_card
+               else np.random.default_rng(0))
+        params0 = model.init(gen, device=device)
+        names = names_of(params0)
+        twin_state = {"params": params0, "opt": adamw.init(params0, opt_cfg)}
+        twin_loss, twin_metrics, twin_grads = accumulate_grads(
+            model, params0, batches[0], PARALLEL_TWIN_MICRO)
+        twin_grads = tree_flatten(twin_grads)[0]
+        step_fn = make_train_step(model, opt_cfg, PARALLEL_TWIN_MICRO)
+        twin = []
+        for b in batches:
+            t0 = time.perf_counter()
+            twin_state, m = step_fn(twin_state, b)
+            twin.append({"wall_ms": sync_s(t0) * 1e3,
+                         "loss": float(m["loss"])})
+        del twin_state, m
+        if on_card:
+            torch.cuda.empty_cache()
+        layouts = {}
+        for layout in ("hybrid", "dp"):
+            row: dict = {"layout": layout}
+            rules = policy.activation_rules(cfg, mesh, "train", layout)
+            bspec = policy.batch_spec(batches[0], mesh,
+                                      global_batch=TRAIN_BATCH, layout=layout)
+            n_shards = int(np.prod([mesh.shape[a] for a in
+                                    place._entry_axes(bspec["tokens"][0])
+                                    ])) if bspec["tokens"] else 1
+            n_micro = pick_microbatches(shape, n_shards)
+            row.update(batch_spec=str(bspec["tokens"]),
+                       batch_shards=n_shards, n_microbatches=n_micro)
+            reset_peaks()
+            a0 = allocated()
+            state = layout_state({"params": params0,
+                                  "opt": adamw.init(params0, opt_cfg)},
+                                 mesh, layout)
+            held = place.device_bytes(state)
+            row["bytes_per_position"] = {str(k): v for k, v in held.items()}
+            row["bytes_policy_total"] = sum(held.values())
+            row["bytes_unique_storage"] = unique_bytes(state)
+            row["bytes_allocated_by_place"] = allocated() - a0
+            if on_card:
+                require(abs(row["bytes_allocated_by_place"]
+                            - row["bytes_unique_storage"])
+                        <= 0.01 * row["bytes_unique_storage"],
+                        f"{layout}: the card holds the placed state's "
+                        f"distinct shards: {row}")
+            sb = [place.place(b, policy.named(bspec, mesh)) for b in batches]
+            with shctx.rules(mesh, rules):
+                place.traffic.reset()
+                loss, _, grads = accumulate_grads(model, state["params"],
+                                                  sb[0], n_micro)
+                row["grad_traffic"] = dataclasses.asdict(place.traffic)
+                errs = {}
+                for name, g, want in zip(names, tree_flatten(grads)[0],
+                                         twin_grads):
+                    errs[name] = rel_l2(g.gather(), want)
+                del grads
+                row["step1_loss"] = float(loss)
+                row["step1_grad_rel_l2"] = errs
+                require(abs(float(loss) - float(twin_loss))
+                        <= TRAIN_LOSS_ATOL
+                        and max(errs.values()) <= TRAIN_GRAD_RTOL,
+                        f"{layout}: step-1 loss {float(loss)} vs "
+                        f"{float(twin_loss)} (tolerance {TRAIN_LOSS_ATOL}), "
+                        f"grads rel L2 max {max(errs.values())} (tolerance "
+                        f"{TRAIN_GRAD_RTOL})")
+                sh_step = make_train_step(model, opt_cfg, n_micro)
+                rows = []
+                for i, b in enumerate(sb):
+                    place.traffic.reset()
+                    t0 = time.perf_counter()
+                    state, m = sh_step(state, b)
+                    dt = sync_s(t0)
+                    r = {"step": i, "wall_ms": dt * 1e3,
+                         "loss": float(m["loss"]),
+                         "twin_loss": twin[i]["loss"],
+                         "twin_wall_ms": twin[i]["wall_ms"],
+                         "traffic": dataclasses.asdict(place.traffic)}
+                    require(math.isfinite(r["loss"]) and abs(
+                        r["loss"] - r["twin_loss"]) <= TRAIN_LOSS_ATOL,
+                        f"{layout} step {i}: loss {r['loss']} vs the "
+                        f"unsharded {r['twin_loss']} (tolerance "
+                        f"{TRAIN_LOSS_ATOL})")
+                    rows.append(r)
+                if on_card and layout == "hybrid":
+                    with torch.profiler.profile(activities=[
+                            torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        state, m = sh_step(state, sb[0])
+                        prof_s = sync_s(t0)
+                    row["profile_step"] = busy_share(torch, prof, prof_s)
+                    del prof
+            row["steps"] = rows
+            warm = statistics.median(r["wall_ms"] for r in rows[1:])
+            twin_warm = statistics.median(r["wall_ms"] for r in twin[1:])
+            row["warm_step_ms"] = warm
+            row["twin_warm_step_ms"] = twin_warm
+            row["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (warm / 1e3)
+            row["twin_tokens_per_s"] = (TRAIN_BATCH * TRAIN_SEQ
+                                        / (twin_warm / 1e3))
+            row["peak_device_bytes"] = peaks()
+            layouts[layout] = row
+            del state, sb, m
+            if on_card:
+                torch.cuda.empty_cache()
+        out["train"] = layouts
+        out["twin_n_microbatches"] = PARALLEL_TWIN_MICRO
+        del params0, twin_grads
+
+        # (c) serving from the parameters read with node 3 lost
+        rng = np.random.default_rng(11)
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (MODEL_BATCH, MODEL_PROMPT)).astype(
+                np.int32)).to(device)
+        sparams = place.place(serve_params, policy.named(
+            policy.param_specs(serve_params, mesh), mesh))
+        prefill = make_prefill_step(model, max_len=MODEL_MAX_LEN)
+        decode = make_decode_step(model, max_len=MODEL_MAX_LEN)
+
+        def timed(fn, *a):
+            t0 = time.perf_counter()
+            res = fn(*a)
+            return res, sync_s(t0) * 1e3
+
+        serve = {}
+        (lg, cache), ms = timed(prefill, serve_params, {"tokens": prompts})
+        want = [lg.float()]
+        tokens = [lg.argmax(-1).int()]
+        dec_ms = []
+        for t in range(MODEL_NEW - 1):
+            (lg, cache), ms_t = timed(decode, serve_params, cache,
+                                      tokens[-1], MODEL_PROMPT + t)
+            want.append(lg.float())
+            tokens.append(lg.argmax(-1).int())
+            dec_ms.append(ms_t)
+        serve["unsharded"] = {"prefill_ms": ms,
+                              "decode_ms_per_token": statistics.median(
+                                  dec_ms)}
+        del cache
+        batch = {"tokens": prompts}
+        sbatch = place.place(batch, policy.named(policy.batch_spec(
+            batch, mesh, global_batch=MODEL_BATCH), mesh))
+        (lg, cache), ms = timed(prefill, sparams, sbatch)
+        got = [lg.gather()]
+        dec_ms = []
+        for t in range(MODEL_NEW - 1):
+            (lg, cache), ms_t = timed(decode, sparams, cache, tokens[t],
+                                      MODEL_PROMPT + t)
+            got.append(lg.gather())
+            dec_ms.append(ms_t)
+        serve["sharded"] = {"prefill_ms": ms,
+                            "decode_ms_per_token": statistics.median(dec_ms),
+                            "cache_spec": str(cache["cycles"][0]["k"].spec)}
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        top2 = [w.topk(2, dim=-1).values for w in want]
+        sure = [(v[..., 0] - v[..., 1]) > PARALLEL_MARGIN for v in top2]
+        flips = sum(int(((g.argmax(-1).int() != t) & s).sum())
+                    for g, t, s in zip(got, tokens, sure))
+        serve.update(max_abs_logit_diff=err, logit_tolerance=MODEL_CPU_ATOL,
+                     tokens_checked=int(sum(int(s.sum()) for s in sure)),
+                     token_flips_beyond_margin=flips,
+                     margin=PARALLEL_MARGIN)
+        require(err <= MODEL_CPU_ATOL and flips == 0,
+                f"sharded serving vs unsharded: max |diff| {err} "
+                f"(tolerance {MODEL_CPU_ATOL}), {flips} greedy tokens "
+                f"apart where the top-2 margin exceeds {PARALLEL_MARGIN}")
+        out["serve"] = serve
+        del sparams, cache, got, want, lg
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # (d) a sharded training state through the MSR checkpointer
+    tcfg = get_config("paper-tiny-lm").reduced(**PRESETS["tiny"]["model"])
+    tmodel = Model(tcfg)
+    topt = adamw.AdamWConfig(lr=1e-3)
+    tparams = tmodel.init(np.random.default_rng(1), device=device)
+    tdc = DataConfig(vocab_size=tcfg.vocab_size, seq_len=64, global_batch=8,
+                     seed=3)
+    tb = [{k: torch.from_numpy(v).to(device)
+           for k, v in batch_at(tdc, i).items()} for i in range(2)]
+    bspec = policy.batch_spec(tb[0], mesh, global_batch=8)
+    tb = [place.place(b, policy.named(bspec, mesh)) for b in tb]
+    tstep = make_train_step(tmodel, topt)
+    n0 = counted(gfm, circ)
+    with deterministic(), tempfile.TemporaryDirectory() as d:
+        state = layout_state({"params": tparams,
+                              "opt": adamw.init(tparams, topt)},
+                             mesh, "hybrid")
+        state, _ = tstep(state, tb[0])
+        spec = CodeSpec.make(PARALLEL_CODE_K, P)
+        t0 = time.perf_counter()
+        ck = MSRCheckpointer(Path(d) / "sharded", spec, device=device)
+        ck.save(1, state)
+        save_ms = sync_s(t0) * 1e3
+        ck_whole = MSRCheckpointer(Path(d) / "whole", spec, device=device)
+        ck_whole.save(1, place.gather(state))
+        digests = [ckpt_digest(Path(d) / w / "step_000001")
+                   for w in ("sharded", "whole")]
+        require(digests[0] == digests[1],
+                f"the sharded save's files equal the unsharded save's: "
+                f"{digests}")
+        t0 = time.perf_counter()
+        restored, rep = ck.restore(state, step=1,
+                                   failed_nodes=[PARALLEL_LOST_NODE])
+        restore_ms = sync_s(t0) * 1e3
+        replaced = layout_state(restored, mesh, "hybrid")
+        require(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                    zip(whole(replaced), whole(state))),
+                "the restored state re-placed equals the saved one bit "
+                "for bit")
+        nxt = [whole(tstep(s, tb[1])[0]) for s in (state, replaced)]
+        same = all(torch.equal(a, b) for a, b in zip(*nxt))
+        require(same, "the step after the round trip equals the step "
+                      "without it, bit for bit")
+        ck.close()
+        ck_whole.close()
+    ckl = launched(gfm, circ, n0)
+    if on_card:
+        require(ckl["circulant_encode"] >= 2 and ckl["gf_matmul"] >= 1,
+                f"the sharded checkpoint encodes and repairs on the card: "
+                f"{ckl}")
+    out["checkpoint"] = {"config": "paper-tiny-lm tiny preset",
+                         "code": f"[{2 * PARALLEL_CODE_K},{PARALLEL_CODE_K}]"
+                                 f" GF({P})",
+                         "files_sha256": digests[0], "save_ms": save_ms,
+                         "restore_path": rep.path,
+                         "lost_node": PARALLEL_LOST_NODE,
+                         "restore_ms": restore_ms, "bit_exact": True,
+                         "next_step_bit_equal": True, "launches": ckl}
+    out["launches"] = counted(gfm, circ)
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--payload-mib", type=int, default=1024,
@@ -3172,7 +3559,8 @@ def main() -> int:
     emit({"phase": "cut", "model": MODEL_ARCH, "reduced": {
         "n_layers": [get_config(MODEL_ARCH).n_layers, cut.n_layers]}})
     t0 = time.perf_counter()
-    model_res = phase_model(torch, np, gfm, circ)
+    kept: dict = {}
+    model_res = phase_model(torch, np, gfm, circ, kept)
     emit({"phase": "model", "ok": True, "card": smi,
           "code": f"[{n},{K}] GF({P})", "nodes": STORE_NODES,
           "stripe_symbols": STORE_STRIPE, **model_res,
@@ -3200,10 +3588,16 @@ def main() -> int:
     emit({"phase": "train", "ok": True, "card": smi, **train_res,
           "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
+    parallel_res = phase_parallel(torch, np, gfm, circ,
+                                  kept.pop("params_node3_lost"))
+    emit({"phase": "parallel", "ok": True, "card": smi, **parallel_res,
+          "seconds": time.perf_counter() - t0})
+
     paths = {"main": main_res, "store": store_res, "checkpoint": ckpt_res,
              "serve": serve_res, "cluster": cluster_res, "drills": drill_res,
              "shard": shard_res, "model": model_res, "families": families_res,
-             "train": train_res}
+             "train": train_res, "parallel": parallel_res}
     source = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                             "src/repro/kernels/gf_matmul.py:96", "decode"),
               "circulant_encode": ("src/repro_torch/csrc/circulant_encode.cu",

@@ -71,6 +71,7 @@ from repro_torch.exec.plan import planning_enabled
 from repro_torch.exec.staging import staged
 from repro_torch.io.blob import BlobBackend, LocalBlob
 from repro_torch.io.retry import RetryPolicy, RetryStats
+from repro_torch.sharding.place import Sharded
 
 # Stream-axis tile (symbols) for the streaming encode: bounds the int32
 # intermediates on device and lets host file writes overlap device compute.
@@ -108,7 +109,10 @@ def _snapshot_leaf(x):
     """Snapshot of one tree leaf that the caller may update in place right
     after: a tensor is cloned where it lies (a card tensor on the
     caller's current stream, so program order puts the clone before the
-    caller's next update), a numpy array copied."""
+    caller's next update), a numpy array copied, a Sharded leaf gathered
+    whole into a new tensor."""
+    if isinstance(x, Sharded):
+        return x.gather().clone()
     if isinstance(x, torch.Tensor):
         return x.detach().clone()
     if isinstance(x, np.ndarray):

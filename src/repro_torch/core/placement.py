@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.place import Sharded
 
 from . import gf
 
@@ -254,7 +255,9 @@ def _flatten(x, leaves: list) -> TreeDef:
 def _leaf_bytes(leaf) -> tuple[bytes, str, list]:
     """(raw bytes, dtype name, shape) of one leaf, as the reference's
     ``np.asarray(leaf)`` writes it; bfloat16 tensors as their 16-bit
-    patterns."""
+    patterns; a Sharded leaf gathered whole first."""
+    if isinstance(leaf, Sharded):
+        leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().contiguous()
         if t.dtype == torch.bfloat16:

@@ -6,16 +6,19 @@ Numerics: logits are a bf16 product cast to fp32, softmax in fp32,
 probabilities cast to the values' dtype, values in bf16 — the reference's
 cast points.  Cache updates return new tensors, as the reference's
 ``dynamic_update_slice`` does, so a cache handed back by one call is never
-changed by a later one.  The reference's sharding hints
-(``sharding.ctx.constrain``) are the identity without a model-parallel
-mesh; the port has only the stream-axis mesh of the storage layer
-(``repro_torch.sharding.mesh``), so it has none.
+changed by a later one.  The sharding hints of the reference
+(``sharding.ctx.constrain`` on q, the scores and the output) sit where
+the reference has them; they return a plain tensor as it is, since under
+a (data, model) mesh the executor (``repro_torch.sharding.parallel``)
+hands this module each position's piece already laid out.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.sharding import ctx as shctx
 
 from .flash import flash_attention
 from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, apply_rope, dense_init,
@@ -101,10 +104,13 @@ def _sdpa(q, k, v, bias):
     """q: (b,sq,h,hd)  k/v: (b,sk,m,hd)  bias: (b,sq,sk) -> (b,sq,h,hd)."""
     hd = q.shape[-1]
     k, v = _repeat_kv(k, v, q.shape[2])
+    q = shctx.constrain(q, "attn_q")          # seq-parallel hint (policy)
     logits = torch.einsum("bshk,bthk->bhst", q, k).float()
+    logits = shctx.constrain(logits, "attn_scores")
     logits = logits * (hd ** -0.5) + bias[:, None, :, :]
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhst,bthk->bshk", probs, v)
+    o = torch.einsum("bhst,bthk->bshk", probs, v)
+    return shctx.constrain(o, "attn_out")
 
 
 def attention(cfg, q, k, v, *, q_pos, k_pos, causal=True, window=None,
@@ -116,7 +122,9 @@ def attention(cfg, q, k, v, *, q_pos, k_pos, causal=True, window=None,
     if (k_valid is None and q_chunk is None
             and b * h * sq * sk >= FLASH_MIN_ELEMS and sq > 1):
         k, v = _repeat_kv(k, v, h)
-        return flash_attention(q, k, v, q_pos, k_pos, causal, window, 1024)
+        o = flash_attention(shctx.constrain(q, "attn_q"), k, v, q_pos, k_pos,
+                            causal, window, 1024)
+        return shctx.constrain(o, "attn_out")
     if q_chunk is None or sq <= q_chunk:
         return _sdpa(q, k, v, _mask_bias(q_pos, k_pos, causal=causal,
                                          window=window, k_valid=k_valid))

@@ -16,6 +16,12 @@ Batch dict keys:
 Parameter trees have the reference's structure, leaf names and dtypes, so
 `core.placement` serializes the port's tree to the reference's bytes and
 either package reads parameters the other stored.
+
+Parameters laid out over a (data, model) mesh (``sharding.place.place``
+by ``sharding.policy.param_specs``) run through the same methods:
+``sharding.parallel`` splits the batch, the dense blocks' heads and FFN
+and the vocab over the mesh and gathers the rest at use; hidden states,
+logits and caches then come back ``Sharded``.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ import torch
 
 from repro_torch.core.placement import tree_flatten
 from repro_torch.device import resolve_device
+from repro_torch.sharding import parallel, policy
+from repro_torch.sharding.place import Sharded, place
 
 from . import transformer as tfm
 from .layers import (COMPUTE_DTYPE, apply_norm, embed_init, init_norm,
@@ -91,7 +99,7 @@ class Model:
         # the whole table before the gather, without a bf16 copy of it
         return params["embed"][batch["tokens"]].to(COMPUTE_DTYPE)
 
-    def _encode(self, params, batch) -> Optional[torch.Tensor]:
+    def _encode(self, params, batch, run=None) -> Optional[torch.Tensor]:
         """The encoder over ``batch["enc_embeds"]``: bidirectional "enc"
         blocks in train mode (no cache, no remat), positions 0..s-1, then
         the encoder's final norm."""
@@ -99,15 +107,24 @@ class Model:
             return None
         enc_cfg = self._encoder_cfg()
         x = batch["enc_embeds"].to(COMPUTE_DTYPE)
+        if run is not None and not isinstance(x, Sharded):
+            x = run.act([run.local(x, i) for i in range(len(run.groups))])
         b, s, _ = x.shape
         pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
             b, s)
         cos, sin = positions_to_angles(enc_cfg, pos)
         ctx = tfm.Ctx(mode="train", cos=cos, sin=sin, q_pos=pos, pos=None,
-                      max_len=s)
+                      max_len=s, run=run)
         x, _, _ = tfm.apply_stack(enc_cfg, params["encoder"]["stack"], x, ctx,
                                   None, remat=False)
-        return apply_norm(enc_cfg, params["encoder"]["final_norm"], x)
+        return self._norm(enc_cfg, params["encoder"]["final_norm"], x, run)
+
+    @staticmethod
+    def _norm(cfg, p, x, run):
+        if run is None:
+            return apply_norm(cfg, p, x)
+        return parallel.per_group(run, lambda xi, pi: apply_norm(cfg, pi, xi),
+                                  x, p)
 
     # ------------------------------------------------------------ forward
     def _positions(self, batch) -> torch.Tensor:
@@ -129,20 +146,24 @@ class Model:
         ``remat`` recomputes each cycle's activations in the backward
         (mode "train" only)."""
         cfg = self.cfg
-        x = self._embed_inputs(params, batch)
+        run = parallel.run_for(params, batch)
+        x = (self._embed_inputs(params, batch) if run is None
+             else parallel.embed(run, params, batch, COMPUTE_DTYPE))
         positions = self._positions(batch)
+        if isinstance(positions, Sharded):
+            positions = positions.gather()
         # masks use the temporal stream when M-RoPE supplies (t, h, w) streams
         rope_pos = positions[0] if positions.ndim == 3 else positions   # (b,s)
         cos, sin = positions_to_angles(cfg, positions)
-        enc_out = (self._encode(params, batch)
+        enc_out = (self._encode(params, batch, run)
                    if cfg.is_encoder_decoder and mode != "decode" else None)
         ctx = tfm.Ctx(mode=mode, cos=cos, sin=sin, q_pos=rope_pos,
                       pos=None if pos is None else int(pos), max_len=max_len,
-                      enc_out=enc_out, q_chunk=q_chunk)
+                      enc_out=enc_out, q_chunk=q_chunk, run=run)
         x, cache, aux = tfm.apply_stack(cfg, params["stack"], x, ctx, cache,
                                         decoder=cfg.is_encoder_decoder,
                                         remat=remat)
-        x = apply_norm(cfg, params["final_norm"], x)
+        x = self._norm(cfg, params["final_norm"], x, run)
         return x, cache, aux
 
     # --------------------------------------------------------------- loss
@@ -151,7 +172,10 @@ class Model:
         ``cfg.loss_chunk``: each chunk's logits are a bf16 ``h @ head``
         taken to fp32 (softcapped when ``cfg.logit_softcap``), and its
         ``logsumexp - logit[label]`` summed in order.  Returns
-        ``(xent + 0.01 * aux, {"xent", "aux"})``."""
+        ``(xent + 0.01 * aux, {"xent", "aux"})``.  Sharded parameters:
+        ``sharding.parallel.loss``."""
+        if parallel.run_for(params, batch) is not None:
+            return parallel.loss(self, params, batch, remat=remat)
         cfg = self.cfg
         h, _, aux = self.forward(params, batch, "train", remat=remat)
         labels = batch["labels"].long()
@@ -189,8 +213,14 @@ class Model:
             b, s = batch["tokens"].shape
         max_len = max(max_len, s)
         cache = self.init_cache(b, max_len, params["embed"].device)
+        run = parallel.run_for(params, batch)
+        if run is not None:     # the cache laid out as the policy says
+            cache = place(cache, policy.named(
+                policy.cache_spec(cache, run.mesh, batch=b), run.mesh))
         h, cache, _ = self.forward(params, batch, "prefill", cache,
                                    max_len=max_len, q_chunk=q_chunk)
+        if run is not None:
+            return parallel.logits(run, self, params, h, last=True), cache
         return self._logits(params, h[:, -1:]), cache
 
     @torch.inference_mode()
@@ -203,4 +233,7 @@ class Model:
         batch = {"tokens": tokens, "positions": positions}
         h, cache, _ = self.forward(params, batch, "decode", cache, pos=pos,
                                    max_len=max_len)
+        run = parallel.run_for(params, batch)
+        if run is not None:
+            return parallel.logits(run, self, params, h), cache
         return self._logits(params, h), cache

@@ -11,8 +11,8 @@ Modes: "train" (no cache), "prefill" (build cache), "decode" (consume
 cache, s == 1).  Caches mirror the parameter stacking.  In "train" mode
 with ``remat=True`` each cycle runs under
 ``torch.utils.checkpoint.checkpoint`` (the reference's
-``jax.checkpoint(cycle_body)``): its activations are recomputed in the
-backward instead of kept.
+``jax.checkpoint(cycle_body)``), or under a mesh ``parallel.remat``: its
+activations are recomputed in the backward instead of kept.
 
 Block kinds: "ga" / "la" (global / sliding-window attention + dense
 FFN), "gm" (global attention + MoE FFN), "rg" (Griffin RG-LRU + dense
@@ -27,6 +27,11 @@ mLSTM / sLSTM stabiliser m is 0), while remainder layers get None and so
 start from ``init_*_cache``'s (m = -1e9).  The stabiliser cancels in
 exact arithmetic but not in rounding (``max(|den|, exp(-m))`` picks its
 branch at another scale), so the port keeps both starts as they are.
+
+Under a (data, model) mesh (``Ctx.run`` set; parameters, caches and the
+residual stream are ``Sharded``) each block is handed to
+``repro_torch.sharding.parallel.apply_block``, which runs the code below
+on each position's piece.
 """
 from __future__ import annotations
 
@@ -35,6 +40,9 @@ from typing import Any, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding import ctx as shctx
+from repro_torch.sharding import parallel, place
 
 from . import attention as attn
 from . import ffn as ffn_mod
@@ -55,6 +63,7 @@ class Ctx:
     max_len: int                    # global-attn cache capacity (decode)
     enc_out: Optional[torch.Tensor] = None   # encoder hidden states (enc-dec)
     q_chunk: Optional[int] = None   # prefill attention chunking
+    run: Any = None                 # sharding.parallel.MeshRun under a mesh
 
 
 ATTN_KINDS = ("ga", "la", "gm", "enc")
@@ -69,6 +78,8 @@ def _stack_trees(trees: list) -> Any:
     t0 = trees[0]
     if isinstance(t0, dict):
         return {k: _stack_trees([t[k] for t in trees]) for k in t0}
+    if isinstance(t0, place.Sharded):
+        return place.stack(trees)
     return torch.stack(trees)
 
 
@@ -144,17 +155,26 @@ def _train_cache_stub(cfg, kind: str, batch: int, device):
 # ------------------------------------------------------------ block: apply
 def _self_attention_sublayer(cfg, p, x, kind, ctx: Ctx, cache):
     h = apply_norm(cfg, p["norm1"], x)
+    o, new_cache = self_attention(cfg, p["attn"], h, kind, ctx, cache)
+    return x + o, new_cache
+
+
+def self_attention(cfg, pa, h, kind, ctx: Ctx, cache):
+    """The self-attention of normed ``h`` with the attention parameters
+    ``pa``, projected out (b, s, d), and the new cache.  Head counts are
+    read from the weights, so a model-axis position runs it on its own
+    heads and returns its partial sum."""
     causal = kind != "enc"
     window = cfg.window_size if kind == "la" else None
-    q = attn.project_q(cfg, p["attn"], h, ctx.cos, ctx.sin)
-    k_new, v_new = attn.project_kv(cfg, p["attn"], h, ctx.cos, ctx.sin)
+    q = attn.project_q(cfg, pa, h, ctx.cos, ctx.sin)
+    k_new, v_new = attn.project_kv(cfg, pa, h, ctx.cos, ctx.sin)
     new_cache = cache
-    b, dev = x.shape[0], x.device
+    b, dev = h.shape[0], h.device
     if ctx.mode == "decode":
         # Mask against the cache in ABSOLUTE slot coordinates: the query
         # side is the write position ctx.pos, not the rope stream position
         # (they differ once M-RoPE image tokens share a t).
-        q_pos = torch.full((b, x.shape[1]), int(ctx.pos), dtype=torch.int32,
+        q_pos = torch.full((b, h.shape[1]), int(ctx.pos), dtype=torch.int32,
                            device=dev)
         if kind == "la":
             new_cache = {**cache,
@@ -182,13 +202,13 @@ def _self_attention_sublayer(cfg, p, x, kind, ctx: Ctx, cache):
         if ctx.mode == "prefill" and cache is not None:
             if kind == "la":
                 ring = attn.prefill_to_window_cache(cfg, k_new, v_new,
-                                                    x.shape[1])
+                                                    h.shape[1])
                 new_cache = {**cache, **ring}
             else:
                 new_cache = {**cache,
                              **attn.global_cache_update(cache, k_new, v_new,
                                                         0)}
-    return x + attn.out_proj(p["attn"], o), new_cache
+    return attn.out_proj(pa, o), new_cache
 
 
 def _cross_attention_sublayer(cfg, p, x, ctx: Ctx, cache):
@@ -218,6 +238,10 @@ def apply_block(cfg, p, kind: str, x, ctx: Ctx, cache=None,
                 *, decoder: bool = False):
     """Returns (x, new_cache, aux); aux is the MoE's load-balancing loss
     for "gm" and 0 otherwise."""
+    x = shctx.constrain(x, "residual")
+    if isinstance(x, place.Sharded):
+        return parallel.apply_block(cfg, p, kind, x, ctx, cache,
+                                    decoder=decoder)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in ATTN_KINDS:
         x, cache = _self_attention_sublayer(cfg, p, x, kind, ctx, cache)
@@ -294,7 +318,7 @@ def apply_stack(cfg, params: dict, x, ctx: Ctx, cache: Optional[dict] = None,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {}
 
-    def cycle(xc, aux, c: int):
+    def cycle(xc, aux, c: int, cycles):
         caches = []
         for j, kind in enumerate(pattern):
             if cache is None:   # train: recurrent kinds start from zeros
@@ -302,7 +326,7 @@ def apply_stack(cfg, params: dict, x, ctx: Ctx, cache: Optional[dict] = None,
             else:
                 cj = _index_tree(cache["cycles"][j], c)
             xc, cj_new, a = apply_block(
-                cfg, _index_tree(params["cycles"][j], c), kind, xc, ctx, cj,
+                cfg, _index_tree(cycles[j], c), kind, xc, ctx, cj,
                 decoder=decoder)
             aux = aux + a
             caches.append(cj_new)
@@ -311,11 +335,16 @@ def apply_stack(cfg, params: dict, x, ctx: Ctx, cache: Optional[dict] = None,
     if n_cycles > 0:
         per_cycle = []
         for c in range(n_cycles):
-            if remat and ctx.mode == "train":
-                x, aux_total, caches = checkpoint(cycle, x, aux_total, c,
-                                                  use_reentrant=False)
+            if remat and ctx.mode == "train" and ctx.run is not None:
+                x, aux_total, caches = parallel.remat(
+                    cycle, x, aux_total, c, params["cycles"])
+            elif remat and ctx.mode == "train":
+                x, aux_total, caches = checkpoint(
+                    cycle, x, aux_total, c, params["cycles"],
+                    use_reentrant=False)
             else:
-                x, aux_total, caches = cycle(x, aux_total, c)
+                x, aux_total, caches = cycle(x, aux_total, c,
+                                             params["cycles"])
             per_cycle.append(caches)
         if cache is not None:
             new_cache["cycles"] = tuple(

@@ -848,3 +848,119 @@ def test_ring_encode_and_int8_ring_mean_on_card(cuda):
         devices=[home(cuda)] * 4), "data")
     want = int8_ring_mean(x, make_host_mesh(devices=["cpu"] * 4), "data")
     assert torch.equal(got.cpu(), want)
+
+
+# ------------------------------------------- the (data, model) mesh
+def test_sharded_train_step_and_decode_on_card(cuda):
+    """A reduced qwen3-4b on a (data=2, model=2) mesh over ``[cuda:0] * 4``
+    (each position a card where the host has four): the sharded train
+    step's loss and grads within the CPU parity tests' tolerances (loss
+    1e-2, grads 3e-2 relative L2) of the unsharded step on the card,
+    and the sharded prefill and decode logits within 0.125 of the
+    unsharded ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement import tree_flatten
+    from repro_torch.launch.mesh import checked_mesh
+    from repro_torch.launch.steps import (accumulate_grads,
+                                          make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models import Model, numpy_params, params_from_numpy
+    from repro_torch.sharding import place, policy
+    n = torch.cuda.device_count()
+    devs = ([torch.device("cuda", i) for i in range(4)] if n >= 4
+            else [home(cuda)] * 4)
+    mesh = checked_mesh((2, 2), ("data", "model"), devs)
+    cfg = get_config("qwen3-4b").reduced(n_layers=2, loss_chunk=16)
+    model = Model(cfg)
+    params = params_from_numpy(numpy_params(cfg, 0), cuda)
+    sp = place.place(params, policy.named(policy.param_specs(params, mesh),
+                                          mesh))
+    tok = torch.from_numpy(rand((4, 33), cfg.vocab_size, 4)).to(cuda)
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    sb = place.place(batch, policy.named(
+        policy.batch_spec(batch, mesh, global_batch=4), mesh))
+    l0, _, g0 = accumulate_grads(model, params, batch, 2)
+    l1, _, g1 = accumulate_grads(model, sp, sb, 2)
+    assert abs(float(l0) - float(l1)) <= 1e-2
+    for a, b in zip(tree_flatten(place.gather(g1))[0], tree_flatten(g0)[0]):
+        assert a.device == b.device
+        assert float((a - b).norm() / b.norm()) <= 3e-2
+    prefill = make_prefill_step(model, max_len=36, q_chunk=None)
+    decode = make_decode_step(model, max_len=36)
+    prompt = {"tokens": batch["tokens"]}
+    (w, wc), (g, gc) = prefill(params, prompt), prefill(sp, prompt)
+    nxt = w.argmax(-1).int()
+    for t in range(3):
+        assert float((g.gather() - w).abs().max()) <= 0.125
+        w, wc = decode(params, wc, nxt, 32 + t)
+        g, gc = decode(sp, gc, nxt, 32 + t)
+        nxt = w.argmax(-1).int()
+    assert float((g.gather() - w).abs().max()) <= 0.125
+    torch.cuda.synchronize()
+
+
+def test_mixed_host_and_card_model_mesh_matches_unsharded(cuda):
+    """A (data=2, model=2) mesh whose positions alternate between the
+    card and the host, so every collective crosses devices: the TP
+    partial sums and broadcasts, the FSDP and vocab gathers, and the
+    all-reduce of the embedding's and head's copies (replicated over
+    data, on two devices).  The train step's loss and grads, the next
+    state, and prefill / decode logits against the unsharded steps on
+    the card, within the CPU parity tests' tolerances."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement import tree_flatten
+    from repro_torch.launch.mesh import checked_mesh
+    from repro_torch.launch.steps import (accumulate_grads,
+                                          make_decode_step,
+                                          make_prefill_step,
+                                          make_train_step)
+    from repro_torch.models import Model, numpy_params, params_from_numpy
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import place, policy
+    card, host = home(cuda), torch.device("cpu")
+    mesh = checked_mesh((2, 2), ("data", "model"), [card, host, host, card])
+    cfg = get_config("qwen3-4b").reduced(n_layers=2, loss_chunk=16)
+    model = Model(cfg)
+    params = params_from_numpy(numpy_params(cfg, 1), card)
+    opt = adamw.AdamWConfig(lr=1e-3)
+    ps = policy.param_specs(params, mesh)
+    state = place.place({"params": params, "opt": adamw.init(params, opt)},
+                        policy.named({"params": ps,
+                                      "opt": policy.opt_specs(ps)}, mesh))
+    emb = state["params"]["embed"]
+    assert {t.device.type for t in emb.unique()} == {"cuda", "cpu"}
+    tok = torch.from_numpy(rand((4, 33), cfg.vocab_size, 6)).to(card)
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    sb = place.place(batch, policy.named(
+        policy.batch_spec(batch, mesh, global_batch=4), mesh))
+    l0, _, g0 = accumulate_grads(model, params, batch, 2)
+    l1, _, g1 = accumulate_grads(model, state["params"], sb, 2)
+    assert abs(float(l0) - float(l1)) <= 1e-2
+    for a, b in zip(tree_flatten(place.gather(g1, card))[0],
+                    tree_flatten(g0)[0]):
+        assert float((a - b).norm() / b.norm()) <= 3e-2
+    g1e = g1["embed"]
+    for hs in g1e.holders().values():       # copies all-reduced
+        ts = [t for _, t in hs]
+        assert all(torch.equal(t.cpu(), ts[0].cpu()) for t in ts)
+    step = make_train_step(model, opt, 2)
+    s0, _ = step({"params": params, "opt": adamw.init(params, opt)}, batch)
+    s1, _ = step(state, sb)
+    for a, b in zip(tree_flatten(place.gather(s1, card))[0],
+                    tree_flatten(s0)[0]):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-2
+    prefill = make_prefill_step(model, max_len=36, q_chunk=None)
+    decode = make_decode_step(model, max_len=36)
+    sp = state["params"]
+    (w, wc), (g, gc) = (prefill(params, {"tokens": batch["tokens"]}),
+                        prefill(sp, {"tokens": batch["tokens"]}))
+    nxt = w.argmax(-1).int()
+    for t in range(3):
+        assert float((g.gather(card) - w).abs().max()) <= 0.125
+        w, wc = decode(params, wc, nxt, 32 + t)
+        g, gc = decode(sp, gc, nxt, 32 + t)
+        nxt = w.argmax(-1).int()
+    assert float((g.gather(card) - w).abs().max()) <= 0.125
+    torch.cuda.synchronize()

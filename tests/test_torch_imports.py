@@ -35,7 +35,10 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.train.tiny_lm", "repro_torch.models.moe",
             "repro_torch.models.rglru", "repro_torch.models.xlstm",
             "repro_torch.models.frontend", "repro_torch.sharding.mesh",
-            "repro_torch.launch.mesh", "repro_torch.core.ring"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.core.ring",
+            "repro_torch.sharding.policy", "repro_torch.sharding.ctx",
+            "repro_torch.sharding.place",
+            "repro_torch.sharding.parallel"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
