@@ -2465,7 +2465,7 @@ def family_traffic(np, cfg, batch: int, prompt: int, seed: int) -> dict:
     return out
 
 
-def phase_families(torch, np, gfm, circ) -> dict:
+def phase_families(torch, np, gfm, circ, keep: dict) -> dict:
     """The registry's other block kinds on the card at their published
     widths, depth cut (FAMILIES): granite-moe and whisper put into the
     [16, 8] store and read back with node 3 lost (one circulant_encode
@@ -2477,8 +2477,10 @@ def phase_families(torch, np, gfm, circ) -> dict:
     tokens from read parameters equal to those from the put ones; the
     same weights on the CPU against the card's logits (1 x 64 prompt and
     4 decode steps), the MoE's routing held on identical logits; each
-    family's known answer.  Kernel counts set to 0 just before and read
-    just after."""
+    family's known answer.  The stored families' parameters read with
+    node 3 lost are kept in ``keep`` (by arch) for phase
+    parallel_families.  Kernel counts set to 0 just before and read just
+    after."""
     import dataclasses
     import resource
     from repro_torch.configs import get_config
@@ -2730,6 +2732,8 @@ def phase_families(torch, np, gfm, circ) -> dict:
             generate(model, params, cfg, traffic, FAMILY_PROFILE_PROMPT, 8)
             prof_s = sync_s(t0)
         rec["profile_generate_8"] = busy_share(torch, prof, prof_s)
+        if spec["stored"]:
+            keep[arch] = served
         del served
         rec["cpu_check"] = card_vs_cpu(model, params, cfg)
         del params
@@ -3417,6 +3421,443 @@ def phase_parallel(torch, np, gfm, circ, serve_params,
     return out
 
 
+PF_BATCH, PF_SEQ = 4, 1024  # train: 4 x 1024 tokens a step
+# the train sequence cut where the sLSTM's per-timestep loop (one pass a
+# position, forward, remat and backward) would hold the phase for minutes;
+# not below 512: at 256 tokens (one mLSTM chunk) the mLSTM gate biases'
+# float32 grads part by 3.5% between two unsharded steps equal in exact
+# arithmetic, too ill-conditioned for the float32 check (PERF.md)
+PF_SEQ_CUT = {"xlstm-1.3b": 512}
+PF_STEPS = 2                # timed sharded train steps a family
+PF_MICRO = 2                # microbatches a step, cut from the global batch
+PF_NEW = 8                  # new tokens served after the families prompt
+PF_AUX_RTOL = 1e-5          # the sharded MoE aux against the unsharded
+PF_FLIP_GAP = 0.125         # a routing flip is a near-tie below this gap
+# xlstm at full width: two unsharded bf16 steps equal in exact arithmetic
+# (1 and 2 microbatches) part by up to 45% on the mLSTM gates' grads
+# (PERF.md), so its split is held in float32 compute, every leaf within
+# PF_F32_RTOL; the bf16 grads are reported beside that spread
+PF_FP32 = ("xlstm-1.3b",)
+PF_F32_RTOL = 1e-3
+
+
+class fp32_compute:
+    """Weights and activations in float32 for the duration (the train
+    step's bf16 casts off), as tests/test_torch_parallel_blocks.py's
+    float32 test runs them."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.launch import steps
+        from repro_torch.models import model
+        self.saved = steps._compute_copy, model.COMPUTE_DTYPE
+        steps._compute_copy = lambda x: x
+        model.COMPUTE_DTYPE = torch.float32
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import steps
+        from repro_torch.models import model
+        steps._compute_copy, model.COMPUTE_DTYPE = self.saved
+
+
+def quiet_params(torch, params):
+    """``params`` with every attention ``wo`` and expert ``w_out`` zero:
+    the blocks add nothing to the residual stream, so every layer's
+    router sees the embedding bit for bit under any mesh, and a sharded
+    and an unsharded MoE aux differ only by how the Switch term is
+    reduced (tests/test_torch_parallel_blocks.py's C1 test)."""
+    out = dict(params)
+    out["stack"] = dict(params["stack"])
+    out["stack"]["cycles"] = tuple(
+        {**blk, "attn": {**blk["attn"], "wo": torch.zeros_like(
+            blk["attn"]["wo"])}, "moe": {**blk["moe"], "w_out":
+                                         torch.zeros_like(blk["moe"]["w_out"])}}
+        for blk in params["stack"]["cycles"])
+    return out
+
+
+def record_top_k(moe, calls: list):
+    """Wrap ``moe.top_k`` to record each call's (probs, choices) on the
+    host; returns the original."""
+    real = moe.top_k
+
+    def top_k(probs, k):
+        vals, idx = real(probs, k)
+        calls.append((probs.detach().float().cpu().numpy(),
+                      idx.cpu().numpy()))
+        return vals, idx
+    moe.top_k = top_k
+    return real
+
+
+def routing_flips(np, want: list, got: list) -> list:
+    """Each token where a sharded top-k call (a batch shard's rows of
+    one chunk) chose other experts than the unsharded call's rows nearest
+    its probabilities: the log-probability gap of the swapped experts (a
+    near-tie parted in one layer and the whole-expert differences it
+    causes in the next layers alike)."""
+    gaps = []
+    for p, own in got:
+        n = p.shape[0]
+        rp, ridx = min(((c[0][r:r + n], c[1][r:r + n])
+                        for c in want if c[0].shape[1:] == p.shape[1:]
+                        for r in range(0, c[0].shape[0] - n + 1, n)),
+                       key=lambda c: float(np.abs(c[0] - p).max()))
+        for at in zip(*np.nonzero((np.sort(own, -1)
+                                   != np.sort(ridx, -1)).any(-1))):
+            mine = set(own[at].tolist()) - set(ridx[at].tolist())
+            theirs = set(ridx[at].tolist()) - set(own[at].tolist())
+            gaps.append(max(abs(float(np.log(rp[at][a]) - np.log(rp[at][b])))
+                            for a in mine for b in theirs))
+    return gaps
+
+
+def phase_parallel_families(torch, np, gfm, circ, stored: dict,
+                            device: str = "cuda") -> dict:
+    """Every block kind split over the model axis on the card: the
+    families phase's four configs (published widths, its depth cuts) on
+    a (data=2, model=2) mesh under the hybrid layout.  For each: (a) 2
+    train steps of 4 x 1024 tokens (whisper: 1500 frame embeddings and a
+    1024-token decoder sequence; xlstm: 4 x 512, ``PF_SEQ_CUT``), 2
+    microbatches cut from the global batch: step ms, tokens/s, peak
+    memory, bytes gathered and reduced between positions a step, bytes
+    per position; step 1's loss and grads against the unsharded step on
+    the card (xlstm's grads in float32, ``PF_FP32``, beside the
+    unsharded step's own spread); granite-moe's aux against the
+    unsharded aux at 1 and 2 microbatches.  (b) 4 x (the
+    families prompt + 8 new tokens) through the sharded prefill and
+    decode steps against the unsharded steps (granite-moe and whisper on
+    the parameters phase families read with node 3 lost, ``stored``;
+    recurrentgemma and xlstm on ``Model.init``'s): logits, greedy tokens,
+    prefill ms, decode ms a token.  (c) granite-moe's trained state,
+    experts split on E over model, saved through ``MSRCheckpointer`` and
+    restored with node 5 lost, bit-identical shard by shard.  Kernel
+    counts set to 0 just before and read just after."""
+    import dataclasses
+    import math
+    import tempfile
+    from repro_torch.checkpoint.msr_checkpoint import MSRCheckpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.circulant import CodeSpec
+    from repro_torch.core.placement import tree_flatten
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch.steps import (_split_micro, accumulate_grads,
+                                          deterministic, make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import Model, moe
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import ctx as shctx
+    from repro_torch.sharding import place, policy
+
+    on_card = device == "cuda"
+    mesh = parallel_mesh(torch, device)
+    cards = sorted({d.index for d in mesh.devices.flat if on_card})
+
+    def sync_s(t0):
+        for i in cards:
+            torch.cuda.synchronize(i)
+        return time.perf_counter() - t0
+
+    def reset_peaks():
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
+
+    def peaks():
+        return {f"cuda:{i}": torch.cuda.max_memory_allocated(i)
+                for i in cards}
+
+    def lay(tree, specs):
+        return place.place(tree, policy.named(specs, mesh))
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm()
+                     / b.float().norm().clamp_min(1e-30))
+
+    def names_of(tree):
+        return tree_flatten(policy.tree_map_with_path(
+            lambda names, _: "/".join(names), tree))[0]
+
+    def batches_of(cfg, seq, n, seed):
+        """n seeded batches of PF_BATCH rows (whisper: with frames)."""
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                          global_batch=PF_BATCH, seed=seed)
+        rng = np.random.default_rng(seed)
+        out = []
+        for i in range(n):
+            b = {k: torch.from_numpy(v).to(device)
+                 for k, v in batch_at(dcfg, i).items()}
+            if cfg.is_encoder_decoder:
+                b["enc_embeds"] = torch.from_numpy((rng.standard_normal(
+                    (PF_BATCH, cfg.encoder_seq, cfg.d_model)) * 0.02
+                    ).astype(np.float32)).to(device)
+            out.append(b)
+        return out
+
+    def aux_of(model, params, batch, n_micro):
+        with torch.no_grad():
+            return float(sum(model.loss(params, mb, remat=False)[1]["aux"]
+                             for mb in _split_micro(batch, n_micro))
+                         / n_micro)
+
+    gfm.launches = 0
+    circ.launches = 0
+    opt_cfg = adamw.AdamWConfig()
+    out: dict = {"mesh": dict(mesh.shape),
+                 "devices": [str(d) for d in mesh.devices.flat],
+                 "layout": "hybrid", "train_batch": PF_BATCH,
+                 "train_seq": PF_SEQ, "n_microbatches": PF_MICRO,
+                 "new_tokens": PF_NEW, "reduced": {
+                     arch: {"train_seq": [PF_SEQ, cut]}
+                     for arch, cut in PF_SEQ_CUT.items()}, "configs": {}}
+    ck_state = None
+    for arch in FAMILIES:
+        t_arch = time.perf_counter()
+        cfg = family_config(dataclasses, get_config, arch)
+        model = Model(cfg)
+        rec: dict = {"n_layers": cfg.n_layers,
+                     "params_source": "coded store, node 3 lost"
+                     if arch in stored else "Model.init"}
+        params = stored.pop(arch, None)
+        if params is None:
+            gen = (torch.Generator(device=device).manual_seed(0) if on_card
+                   else np.random.default_rng(0))
+            params = model.init(gen, device=device)
+        names = names_of(params)
+        pspecs = policy.param_specs(params, mesh, layout="hybrid")
+        rules = policy.activation_rules(cfg, mesh, "train", "hybrid")
+        seq = PF_SEQ_CUT.get(arch, PF_SEQ)
+        rec["train_seq"] = seq
+        batches = batches_of(cfg, seq, PF_STEPS, 0)
+        bspec = policy.batch_spec(batches[0], mesh, global_batch=PF_BATCH)
+        # (a) train: step 1's grads unsharded, then the sharded steps
+        def step1_grads(ps, batch):
+            t0 = time.perf_counter()
+            loss, metrics, grads = accumulate_grads(model, ps, batch,
+                                                    PF_MICRO)
+            return loss, metrics, [g.gather() if isinstance(
+                g, place.Sharded) else g for g in tree_flatten(grads)[0]], \
+                sync_s(t0) * 1e3
+
+        def errors(got, want):
+            for name, g in zip(names, got):
+                require(bool(torch.isfinite(g).all()),
+                        f"{arch}: finite grad {name}")
+            return {name: rel_l2(g, w) for name, g, w in zip(names, got,
+                                                              want)}
+
+        def worst(errs):
+            return sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+
+        with deterministic():
+            twin_loss, twin_m, twin_grads, ms = step1_grads(params,
+                                                            batches[0])
+            rec["unsharded_grads_ms"] = ms
+            reset_peaks()
+            state = lay({"params": params, "opt": adamw.init(params, opt_cfg)},
+                        {"params": pspecs, "opt": policy.opt_specs(pspecs)})
+            held = place.device_bytes(state)
+            rec["bytes_per_position"] = {str(k): v for k, v in held.items()}
+            sb = [lay(b, bspec) for b in batches]
+            with shctx.rules(mesh, rules):
+                place.traffic.reset()
+                loss, metrics, grads, ms = step1_grads(state["params"], sb[0])
+                rec["sharded_grads_ms"] = ms
+                rec["grads_traffic"] = dataclasses.asdict(place.traffic)
+                errs = errors(grads, twin_grads)
+                del grads
+                rec["step1"] = {
+                    "loss": float(loss), "unsharded_loss": float(twin_loss),
+                    "aux": float(metrics["aux"]),
+                    "unsharded_aux": float(twin_m["aux"]),
+                    "grad_rel_l2_max": max(errs.values()),
+                    "grad_rel_l2_worst": worst(errs)}
+                require(abs(float(loss) - float(twin_loss)) <= TRAIN_LOSS_ATOL,
+                        f"{arch}: step-1 loss vs the unsharded step: "
+                        f"{rec['step1']}")
+                if arch in PF_FP32:
+                    # the unsharded step's own bf16 spread, then the split
+                    # held in float32
+                    one = accumulate_grads(model, params, batches[0], 1)[2]
+                    spread = errors(tree_flatten(one)[0], twin_grads)
+                    del one, twin_grads
+                    rec["step1"]["unsharded_1_vs_2_microbatches_worst"] = \
+                        worst(spread)
+                    with fp32_compute():
+                        floss, _, fwant, _ = step1_grads(params, batches[0])
+                        sloss, _, fgot, _ = step1_grads(state["params"], sb[0])
+                        one = accumulate_grads(model, params, batches[0], 1)[2]
+                    ferrs = errors(fgot, fwant)
+                    fspread = errors(tree_flatten(one)[0], fwant)
+                    del fgot, fwant, one
+                    rec["step1_float32"] = {
+                        "loss": float(sloss), "unsharded_loss": float(floss),
+                        "grad_rel_l2_max": max(ferrs.values()),
+                        "grad_rel_l2_worst": worst(ferrs),
+                        "unsharded_1_vs_2_microbatches_worst": worst(fspread),
+                        "tolerance": PF_F32_RTOL}
+                    require(abs(float(sloss) - float(floss)) <= TRAIN_LOSS_ATOL
+                            and max(ferrs.values()) <= PF_F32_RTOL,
+                            f"{arch}: float32 step-1 vs the unsharded step: "
+                            f"{rec['step1_float32']}")
+                else:
+                    del twin_grads
+                    require(max(errs.values()) <= TRAIN_GRAD_RTOL,
+                            f"{arch}: step-1 grads vs the unsharded step: "
+                            f"{rec['step1']}")
+                sh_step = make_train_step(model, opt_cfg, PF_MICRO)
+                rows = []
+                for i, b in enumerate(sb):
+                    place.traffic.reset()
+                    t0 = time.perf_counter()
+                    state, m = sh_step(state, b)
+                    dt = sync_s(t0)
+                    rows.append({"step": i, "wall_ms": dt * 1e3,
+                                 "tokens_per_s": PF_BATCH * seq / dt,
+                                 "loss": float(m["loss"]),
+                                 "traffic": dataclasses.asdict(place.traffic)})
+                    require(math.isfinite(rows[-1]["loss"]),
+                            f"{arch} step {i}: finite loss")
+            rec["steps"] = rows
+            rec["peak_device_bytes"] = peaks()
+            if cfg.n_experts:       # C1: the aux over the global batch
+                quiet = quiet_params(torch, params)
+                squiet = lay(quiet, pspecs)
+                aux = {}
+                for n in (1, PF_MICRO):
+                    want = aux_of(model, quiet, batches[0], n)
+                    got = aux_of(model, squiet, sb[0], n)
+                    aux[n] = {"sharded": got, "unsharded": want,
+                              "rel": abs(got - want) / want}
+                    require(aux[n]["rel"] <= PF_AUX_RTOL,
+                            f"{arch}: sharded aux at {n} microbatches vs "
+                            f"the unsharded: {aux[n]}")
+                rec["aux_quiet_weights"] = aux
+                del quiet, squiet
+                ck_state = state
+            del state, sb, m
+            if on_card:
+                torch.cuda.empty_cache()
+
+        # (b) serve: the families prompt + 8 new tokens, sharded vs not
+        prompt = WHISPER_PROMPT if cfg.is_encoder_decoder else FAMILY_PROMPT
+        traffic = family_traffic(np, cfg, FAMILY_BATCH, prompt, 5)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in traffic.items()}
+        prefill = make_prefill_step(model, max_len=prompt + PF_NEW)
+        decode = make_decode_step(model, max_len=prompt + PF_NEW)
+        calls = {"unsharded": [], "sharded": []}
+        serve: dict = {"prompt": prompt}
+        want, tokens, got = [], [], []
+        for label, ps, b in (("unsharded", params, batch),
+                             ("sharded", lay(params, policy.param_specs(
+                                 params, mesh)), lay(batch, policy.batch_spec(
+                                     batch, mesh, global_batch=FAMILY_BATCH)))):
+            real = record_top_k(moe, calls[label])
+            try:
+                t0 = time.perf_counter()
+                lg, cache = prefill(ps, b)
+                prefill_ms = sync_s(t0) * 1e3
+                dec = []
+                for t in range(PF_NEW):
+                    lg = lg.gather() if isinstance(lg, place.Sharded) else lg
+                    (want if label == "unsharded" else got).append(lg.float())
+                    if label == "unsharded":
+                        tokens.append(lg[:, -1:].argmax(-1).int())
+                    if t == PF_NEW - 1:
+                        break
+                    t0 = time.perf_counter()
+                    lg, cache = decode(ps, cache, tokens[t], prompt + t)
+                    dec.append(sync_s(t0) * 1e3)
+            finally:
+                moe.top_k = real
+            serve[label] = {"prefill_ms": prefill_ms,
+                            "decode_ms_per_token": statistics.median(dec)}
+            if label == "sharded":
+                serve["cache_specs"] = sorted({str(v.spec) for v in
+                                               tree_flatten(cache)[0]})
+                del ps
+            del cache, lg
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        sure = [(lambda v: (v[..., 0] - v[..., 1]) > PARALLEL_MARGIN)(
+            w[:, -1:].topk(2, dim=-1).values) for w in want]
+        flips = sum(int(((g[:, -1:].argmax(-1).int() != w[:, -1:].argmax(
+            -1).int()) & s).sum()) for g, w, s in zip(got, want, sure))
+        serve.update(max_abs_logit_diff=err, logit_tolerance=MODEL_CPU_ATOL,
+                     token_flips_beyond_margin=flips,
+                     tokens_checked=int(sum(int(s.sum()) for s in sure)))
+        ok = err <= MODEL_CPU_ATOL and flips == 0
+        if cfg.n_experts:
+            gaps = routing_flips(np, calls["unsharded"], calls["sharded"])
+            serve["routing"] = {"top_k_calls": len(calls["sharded"]),
+                                "differing_choices": len(gaps),
+                                "near_ties": sum(g <= PF_FLIP_GAP
+                                                 for g in gaps),
+                                "max_log_prob_gap": max(gaps, default=0.0)}
+            # a whole-expert difference only where routing parted at a
+            # near-tie (phase families' rule, card vs CPU)
+            ok = ok or (gaps and max(gaps) <= PF_FLIP_GAP)
+        require(ok, f"{arch}: sharded serving vs unsharded: {serve}")
+        rec["serve"] = serve
+        del want, got, batch, calls, params
+        if on_card:
+            torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t_arch
+        out["configs"][arch] = rec
+        print(json.dumps({"parallel_families": arch, **rec}, default=str),
+              file=sys.stderr, flush=True)
+
+    # (c) granite-moe's trained state through the checkpointer
+    require(ck_state is not None, "an MoE family's state to checkpoint")
+    n0 = counted(gfm, circ)
+    spec = CodeSpec.make(PARALLEL_CODE_K, P)
+    with tempfile.TemporaryDirectory() as d:
+        ck = MSRCheckpointer(Path(d) / "pf", spec, device=device)
+        try:
+            t0 = time.perf_counter()
+            ck.save(1, ck_state)
+            save_ms = sync_s(t0) * 1e3
+            t0 = time.perf_counter()
+            restored, rep = ck.restore(ck_state, step=1,
+                                       failed_nodes=[PARALLEL_LOST_NODE])
+            restore_ms = sync_s(t0) * 1e3
+        finally:
+            ck.close()
+    ps = policy.param_specs(restored["params"], mesh)
+    back = lay(restored, {"params": ps, "opt": policy.opt_specs(ps)})
+    del restored
+    same = all(a.spec == b.spec and all(
+        a.shards[pos].dtype == b.shards[pos].dtype
+        and torch.equal(a.shards[pos], b.shards[pos]) for pos in b.shards)
+        for a, b in zip(tree_flatten(back)[0], tree_flatten(ck_state)[0]))
+    require(same, "the restored granite-moe state equals the saved one, "
+                  "shard by shard")
+    moe_w = ck_state["params"]["stack"]["cycles"][0]["moe"]["w_in"]
+    ckl = launched(gfm, circ, n0)
+    if on_card:
+        require(ckl["circulant_encode"] >= 1 and ckl["gf_matmul"] >= 1,
+                f"the sharded checkpoint encodes and repairs on the card: "
+                f"{ckl}")
+    out["checkpoint"] = {"config": "granite-moe-1b-a400m",
+                         "experts_spec": str(moe_w.spec),
+                         "state_bytes": sum(
+                             math.prod(x.shape) * x.unique()[0].element_size()
+                             for x in tree_flatten(ck_state)[0]),
+                         "code": f"[{2 * PARALLEL_CODE_K},{PARALLEL_CODE_K}]"
+                                 f" GF({P})", "lost_node": PARALLEL_LOST_NODE,
+                         "restore_path": rep.path, "save_ms": save_ms,
+                         "restore_ms": restore_ms,
+                         "bit_exact_shard_by_shard": True, "launches": ckl}
+    del ck_state, back
+    out["launches"] = counted(gfm, circ)
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+# --only: phases run alone after the build, in order
+ONLY = {"parallel_families": ("parallel_families",),
+        "families,parallel_families": ("families", "parallel_families")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--payload-mib", type=int, default=1024,
@@ -3429,6 +3870,11 @@ def main() -> int:
                     help="checkpoint-phase training state (default 512)")
     ap.add_argument("--serve-mib", type=int, default=256,
                     help="serve-phase payload over 16 objects (default 256)")
+    ap.add_argument("--only", choices=ONLY, default=None,
+                    help="build the kernels and run only these phases "
+                         "(a rehearsal: no kernels line; without phase "
+                         "families, parallel_families draws every family's "
+                         "parameters from Model.init)")
     args = ap.parse_args()
     # deterministic cuBLAS for the train phase's bit-exact crash drill:
     # read when the process makes its first cuBLAS call
@@ -3470,6 +3916,20 @@ def main() -> int:
     regs = [ln.strip() for src in _build.SOURCES
             for ln in _build.build_log(src).splitlines() if "Used" in ln]
     emit({"phase": "build", "seconds": build_s, "ptxas": regs})
+    if args.only:
+        kept: dict = {}
+        for phase in ONLY[args.only]:
+            t0 = time.perf_counter()
+            fn = {"families": phase_families,
+                  "parallel_families": phase_parallel_families}[phase]
+            emit({"phase": phase, "ok": True, "card": smi,
+                  **fn(torch, np, gfm, circ, kept),
+                  "seconds": time.perf_counter() - t0})
+        print(smi, flush=True)
+        emit({"ok": True, "only": ONLY[args.only],
+              "device": {"platform": "gpu", "kind": name,
+                         "count": torch.cuda.device_count()}})
+        return 0
 
     payload_bytes = args.payload_mib << 20
     n = 2 * K
@@ -3575,7 +4035,7 @@ def main() -> int:
             k: [getattr(full, k), getattr(cut, k)]
             for k in FAMILIES[arch]["layers"]}})
     t0 = time.perf_counter()
-    families_res = phase_families(torch, np, gfm, circ)
+    families_res = phase_families(torch, np, gfm, circ, kept)
     emit({"phase": "families", "ok": True, "card": smi,
           "code": f"[{n},{K}] GF({P})", "nodes": STORE_NODES,
           "stripe_symbols": STORE_STRIPE, "lost_node": FAMILY_LOST_NODE,
@@ -3594,10 +4054,16 @@ def main() -> int:
     emit({"phase": "parallel", "ok": True, "card": smi, **parallel_res,
           "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
+    pf_res = phase_parallel_families(torch, np, gfm, circ, kept)
+    emit({"phase": "parallel_families", "ok": True, "card": smi, **pf_res,
+          "seconds": time.perf_counter() - t0})
+
     paths = {"main": main_res, "store": store_res, "checkpoint": ckpt_res,
              "serve": serve_res, "cluster": cluster_res, "drills": drill_res,
              "shard": shard_res, "model": model_res, "families": families_res,
-             "train": train_res, "parallel": parallel_res}
+             "train": train_res, "parallel": parallel_res,
+             "parallel_families": pf_res}
     source = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                             "src/repro/kernels/gf_matmul.py:96", "decode"),
               "circulant_encode": ("src/repro_torch/csrc/circulant_encode.cu",

@@ -93,22 +93,25 @@ def grads_of(model, params, batch) -> tuple[torch.Tensor, dict, Any]:
 
 
 def _split_micro(batch: dict, n: int) -> list[dict]:
-    """``n`` microbatches in order: each leaf split on its batch axis —
-    dim 1 of (3, b, s) M-RoPE positions, dim 0 of everything else; a
-    Sharded leaf within each batch shard (microbatches per data
-    shard)."""
+    """``n`` microbatches in order, each a contiguous slice of the global
+    batch as the reference cuts them: each leaf split on its batch axis —
+    dim 1 of (3, b, s) M-RoPE positions, dim 0 of everything else.  A
+    Sharded leaf's slice is re-laid over its batch axes
+    (:meth:`Sharded.take`; rows that change position count in
+    ``place.traffic``)."""
     def split(k, x):
         dim = 1 if (k == "positions" and x.ndim == 3) else 0
-        if isinstance(x, Sharded):
-            try:
-                return place.split(x, n, dim)
-            except ValueError as e:
-                raise ValueError(f"{k!r} does not split into {n} "
-                                 f"microbatches: {e}") from None
         b = x.shape[dim]
         if b % n:
             raise ValueError(f"batch {b} of {k!r} does not split into {n} "
                              f"microbatches")
+        if isinstance(x, Sharded):
+            try:
+                return [x.take(dim, i * b // n, (i + 1) * b // n)
+                        for i in range(n)]
+            except ValueError as e:
+                raise ValueError(f"{k!r} does not split into {n} "
+                                 f"microbatches: {e}") from None
         return torch.split(x, b // n, dim=dim)
 
     parts = {k: split(k, v) for k, v in batch.items()}

@@ -9,8 +9,9 @@ cast points.  Cache updates return new tensors, as the reference's
 changed by a later one.  The sharding hints of the reference
 (``sharding.ctx.constrain`` on q, the scores and the output) sit where
 the reference has them; they return a plain tensor as it is, since under
-a (data, model) mesh the executor (``repro_torch.sharding.parallel``)
-hands this module each position's piece already laid out.
+a (data, model) mesh the executor (``repro_torch.sharding.blocks``)
+hands this module each position's piece already laid out: its query
+heads (and KV heads, or the KV heads they read), or its query rows.
 """
 from __future__ import annotations
 

@@ -19,9 +19,10 @@ either package reads parameters the other stored.
 
 Parameters laid out over a (data, model) mesh (``sharding.place.place``
 by ``sharding.policy.param_specs``) run through the same methods:
-``sharding.parallel`` splits the batch, the dense blocks' heads and FFN
-and the vocab over the mesh and gathers the rest at use; hidden states,
-logits and caches then come back ``Sharded``.
+``sharding.parallel`` splits the batch and the vocab over the mesh and
+every block's compute as the policy splits its leaves
+(``sharding.blocks``); hidden states, logits and caches then come back
+``Sharded``.
 """
 from __future__ import annotations
 

@@ -78,55 +78,94 @@ def route(cfg, logits: torch.Tensor, cap: int) -> dict:
             "keep": pos_in_expert < cap}
 
 
-def _moe_chunk(cfg, params, x):
-    """x: (b, t, d) one sequence chunk -> (out, aux loss of the chunk)."""
-    b, t, d = x.shape
-    e, topk = cfg.n_experts, cfg.n_experts_per_token
-    cap = _capacity(t, cfg)
-    logits = (x @ params["router"].to(x.dtype)).float()          # (b,t,e)
-    r = route(cfg, logits, cap)
-    onehot, keep = r["onehot"], r["keep"].float()
+def dispatch(cfg, r: dict, cap: int, lo: int = 0, n: int | None = None):
+    """Dispatch (b,t,n,cap) and combine weights of experts [lo, lo + n)
+    (default: all) from a chunk's routing ``r``.  Each expert appears at
+    most once among a token's k choices, so every sum over k has at most
+    one nonzero term."""
+    onehot = r["onehot"]
+    n = onehot.shape[-1] - lo if n is None else n
+    onehot = onehot[..., lo:lo + n]
+    keep = r["keep"].float()
     slot_oh = _one_hot(r["pos_in_expert"].to(torch.int32), cap)  # (b,t,k,c)
-    # dispatch (b,t,e,cap) and combine weights, contracted pairwise; each
-    # expert appears at most once among a token's k choices, so every sum
-    # over k has at most one nonzero term
     disp = torch.einsum("btke,btkc->btec", onehot * keep[..., None], slot_oh)
     comb = disp * torch.einsum("btke,btk->bte", onehot,
                                r["gate_vals"] * keep)[..., None]
+    return disp, comb
 
+
+def expert_act(cfg, h, g):
+    """The experts' activation of their input projection ``h`` (and gate
+    projection ``g`` when gated)."""
+    if g is None:
+        return gelu(h)
+    act = silu if cfg.act == "silu" else gelu
+    return act(g) * h
+
+
+def expert_hidden(cfg, params, x, disp):
+    """The activated hidden states (b, e, c, ff) of the experts whose
+    input weights ``params`` holds, on the tokens ``disp`` sends them."""
     xe = torch.einsum("btec,btd->becd", disp.to(x.dtype), x)     # (b,e,c,d)
     h = torch.einsum("becd,edf->becf", xe, params["w_in"].to(x.dtype))
-    if "w_gate" in params:
-        g = torch.einsum("becd,edf->becf", xe, params["w_gate"].to(x.dtype))
-        act = silu if cfg.act == "silu" else gelu
-        h = act(g) * h
-    else:
-        h = gelu(h)
-    ye = torch.einsum("becf,efd->becd", h, params["w_out"].to(x.dtype))
-    out = torch.einsum("btec,becd->btd", comb.to(x.dtype), ye)
+    g = (torch.einsum("becd,edf->becf", xe, params["w_gate"].to(x.dtype))
+         if "w_gate" in params else None)
+    return expert_act(cfg, h, g)
 
-    # Switch aux loss terms of this chunk
-    me = onehot.sum(2).mean(dim=(0, 1))      # fraction routed per expert
-    ce = r["probs"].mean(dim=(0, 1))         # mean router prob per expert
-    aux = (me * ce).sum() * e / topk
-    return out, aux
+
+def aux_sums(r: dict) -> tuple:
+    """The Switch aux loss's sums over a chunk's rows and tokens: routed
+    one-hots per expert (e,), router probabilities per expert (e,), and
+    the token count.  Sums, not means, so that batch shards' sums add up
+    to the whole chunk's before :func:`aux_term` takes the product."""
+    b, t, _ = r["probs"].shape
+    return r["onehot"].sum(2).sum(dim=(0, 1)), r["probs"].sum(dim=(0, 1)), \
+        b * t
+
+
+def aux_term(cfg, routed, probs, n) -> torch.Tensor:
+    """``sum(me * ce) * e / topk`` of a chunk from its :func:`aux_sums`:
+    ``me`` the fraction routed per expert, ``ce`` the mean router
+    probability per expert."""
+    me = routed / n                          # fraction routed per expert
+    ce = probs / n                           # mean router prob per expert
+    return (me * ce).sum() * cfg.n_experts / cfg.n_experts_per_token
+
+
+def _moe_chunk(cfg, params, x):
+    """x: (b, t, d) one sequence chunk -> (out, aux sums of the chunk)."""
+    cap = _capacity(x.shape[1], cfg)
+    r = route(cfg, (x @ params["router"].to(x.dtype)).float(), cap)
+    disp, comb = dispatch(cfg, r, cap)
+    ye = torch.einsum("becf,efd->becd", expert_hidden(cfg, params, x, disp),
+                      params["w_out"].to(x.dtype))
+    return torch.einsum("btec,becd->btd", comb.to(x.dtype), ye), aux_sums(r)
+
+
+def chunks(cfg, s: int) -> list[tuple[int, int]]:
+    """The (start, end) of each dispatch chunk of a length-``s``
+    sequence: ``cfg.moe_chunk`` each where it divides s into more than
+    one, else the whole sequence."""
+    chunk = min(cfg.moe_chunk, s)
+    if s % chunk == 0 and s // chunk > 1:
+        return [(c, c + chunk) for c in range(0, s, chunk)]
+    return [(0, s)]
 
 
 def apply_moe(cfg, params, x):
     """x: (b, s, d) -> (out, aux loss).  The sequence is chunked for
-    dispatch memory; capacity is enforced per chunk."""
-    b, s, d = x.shape
-    chunk = min(cfg.moe_chunk, s)
-    if s % chunk == 0 and s // chunk > 1:
-        outs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
-        for c in range(0, s, chunk):
-            o, a = _moe_chunk(cfg, params, x[:, c:c + chunk])
-            outs.append(o)
-            aux = aux + a
-        out = torch.cat(outs, dim=1)
-        aux = aux / (s // chunk)
-    else:
-        out, aux = _moe_chunk(cfg, params, x)
+    dispatch memory; capacity is enforced per chunk, and the aux loss is
+    the mean of the chunks' terms."""
+    spans = chunks(cfg, x.shape[1])
+    outs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo, hi in spans:
+        o, sums = _moe_chunk(cfg, params, x[:, lo:hi] if len(spans) > 1
+                             else x)
+        outs.append(o)
+        aux = aux + aux_term(cfg, *sums)
+    out = torch.cat(outs, dim=1) if len(spans) > 1 else outs[0]
+    if len(spans) > 1:
+        aux = aux / len(spans)
     if "residual" in params:
         out = out + apply_ffn(cfg, params["residual"], x)
     return out, aux

@@ -76,14 +76,17 @@ def _causal_conv(params, x, state=None):
     return out + params["conv_b"].to(x.dtype), new_state
 
 
-def _rg_lru_gates(params, x):
-    """(a, gated input) of the recurrence, fp32."""
+def _rg_lru_gates(params, x, x_out=None):
+    """(a, gated input) of the recurrence, fp32: the gates of ``x``
+    (their columns that ``wa`` / ``wx`` hold) applied to ``x_out``, the
+    same channels of the input (default x itself)."""
     xf = x.float()
     r = sigmoid(xf @ params["wa"].float())
     i = sigmoid(xf @ params["wx"].float())
     log_a = -_C * F.softplus(params["lam"]) * r               # (b, s, w)
     a = torch.exp(log_a)
-    gated_x = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
+    xo = xf if x_out is None else x_out.float()
+    gated_x = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xo)
     return a, gated_x
 
 

@@ -159,14 +159,32 @@ def _self_attention_sublayer(cfg, p, x, kind, ctx: Ctx, cache):
     return x + o, new_cache
 
 
-def self_attention(cfg, pa, h, kind, ctx: Ctx, cache):
-    """The self-attention of normed ``h`` with the attention parameters
-    ``pa``, projected out (b, s, d), and the new cache.  Head counts are
-    read from the weights, so a model-axis position runs it on its own
-    heads and returns its partial sum."""
+@dataclasses.dataclass
+class KV:
+    """What a block's queries attend to: keys and values (b, sk, m, hd),
+    the masking of :func:`attention.attention` and the new cache."""
+    k: torch.Tensor
+    v: torch.Tensor
+    q_pos: torch.Tensor
+    k_pos: torch.Tensor
+    causal: bool
+    window: Optional[int]
+    k_valid: Optional[torch.Tensor]
+    q_chunk: Optional[int]
+    cache: Any
+
+
+def attend(cfg, q, kv: KV) -> torch.Tensor:
+    return attn.attention(cfg, q, kv.k, kv.v, q_pos=kv.q_pos, k_pos=kv.k_pos,
+                          causal=kv.causal, window=kv.window,
+                          k_valid=kv.k_valid, q_chunk=kv.q_chunk)
+
+
+def self_kv(cfg, pa, h, kind, ctx: Ctx, cache) -> KV:
+    """The keys and values of normed ``h`` (decode: the updated cache's)
+    and the new cache.  Head counts are read from the weights."""
     causal = kind != "enc"
     window = cfg.window_size if kind == "la" else None
-    q = attn.project_q(cfg, pa, h, ctx.cos, ctx.sin)
     k_new, v_new = attn.project_kv(cfg, pa, h, ctx.cos, ctx.sin)
     new_cache = cache
     b, dev = h.shape[0], h.device
@@ -192,46 +210,64 @@ def self_attention(cfg, pa, h, kind, ctx: Ctx, cache):
             t = torch.arange(ctx.max_len, dtype=torch.int32, device=dev)
             k_pos = t[None].expand(b, ctx.max_len)
             k_valid = (t <= ctx.pos)[None].expand(b, ctx.max_len)
-        o = attn.attention(cfg, q, new_cache["k"], new_cache["v"],
-                           q_pos=q_pos, k_pos=k_pos, causal=causal,
-                           window=window, k_valid=k_valid)
-    else:
-        o = attn.attention(cfg, q, k_new, v_new, q_pos=ctx.q_pos,
-                           k_pos=ctx.q_pos, causal=causal, window=window,
-                           q_chunk=ctx.q_chunk)
-        if ctx.mode == "prefill" and cache is not None:
-            if kind == "la":
-                ring = attn.prefill_to_window_cache(cfg, k_new, v_new,
-                                                    h.shape[1])
-                new_cache = {**cache, **ring}
-            else:
-                new_cache = {**cache,
-                             **attn.global_cache_update(cache, k_new, v_new,
-                                                        0)}
-    return attn.out_proj(pa, o), new_cache
+        return KV(new_cache["k"], new_cache["v"], q_pos, k_pos, causal,
+                  window, k_valid, None, new_cache)
+    if ctx.mode == "prefill" and cache is not None:
+        if kind == "la":
+            ring = attn.prefill_to_window_cache(cfg, k_new, v_new, h.shape[1])
+            new_cache = {**cache, **ring}
+        else:
+            new_cache = {**cache,
+                         **attn.global_cache_update(cache, k_new, v_new, 0)}
+    return KV(k_new, v_new, ctx.q_pos, ctx.q_pos, causal, window, None,
+              ctx.q_chunk, new_cache)
 
 
-def _cross_attention_sublayer(cfg, p, x, ctx: Ctx, cache):
-    """Attention of the decoder's queries over the encoder's output: no
-    rope, not causal, query positions 0.  Prefill projects the encoder's
-    keys and values into the cache's ``ck`` / ``cv``; decode reads them."""
-    h = apply_norm(cfg, p["cross_norm"], x)
-    q = attn.project_q(cfg, p["cross"], h, None, None)   # no rope on cross
+def self_attention(cfg, pa, h, kind, ctx: Ctx, cache):
+    """The self-attention of normed ``h`` with the attention parameters
+    ``pa``, projected out (b, s, d), and the new cache.  Head counts are
+    read from the weights, so a model-axis position runs it on its own
+    heads and returns its partial sum."""
+    q = attn.project_q(cfg, pa, h, ctx.cos, ctx.sin)
+    kv = self_kv(cfg, pa, h, kind, ctx, cache)
+    return attn.out_proj(pa, attend(cfg, q, kv)), kv.cache
+
+
+def cross_q(cfg, pc, h, ctx: Ctx):
+    return attn.project_q(cfg, pc, h, None, None)      # no rope on cross
+
+
+def cross_kv(cfg, pc, h, ctx: Ctx, cache) -> KV:
+    """The encoder's keys and values for the decoder's queries ``h``: no
+    rope, not causal, query positions 0.  Prefill projects them into the
+    cache's ``ck`` / ``cv``; decode reads them."""
     new_cache = cache
     if ctx.mode == "decode":
         ck, cv = cache["ck"], cache["cv"]
     else:
-        ck, cv = attn.project_kv(cfg, p["cross"], ctx.enc_out, None, None)
+        ck, cv = attn.project_kv(cfg, pc, ctx.enc_out, None, None)
         if ctx.mode == "prefill" and cache is not None:
             new_cache = {**cache, "ck": ck.to(cache["ck"].dtype),
                          "cv": cv.to(cache["cv"].dtype)}
-    b, t = x.shape[0], ck.shape[1]
-    k_pos = torch.arange(t, dtype=torch.int32, device=x.device)[None].expand(
+    b, t = h.shape[0], ck.shape[1]
+    k_pos = torch.arange(t, dtype=torch.int32, device=h.device)[None].expand(
         b, t)
-    o = attn.attention(cfg, q, ck, cv, q_pos=torch.zeros_like(ctx.q_pos),
-                       k_pos=k_pos, causal=False, window=None,
-                       q_chunk=ctx.q_chunk)
-    return x + attn.out_proj(p["cross"], o), new_cache
+    return KV(ck, cv, torch.zeros_like(ctx.q_pos), k_pos, False, None, None,
+              ctx.q_chunk, new_cache)
+
+
+def cross_attention(cfg, pc, h, ctx: Ctx, cache):
+    """Attention of the decoder's normed ``h`` over the encoder's output
+    (:func:`cross_kv`), projected out, and the new cache."""
+    kv = cross_kv(cfg, pc, h, ctx, cache)
+    return attn.out_proj(pc, attend(cfg, cross_q(cfg, pc, h, ctx), kv)), \
+        kv.cache
+
+
+def _cross_attention_sublayer(cfg, p, x, ctx: Ctx, cache):
+    h = apply_norm(cfg, p["cross_norm"], x)
+    o, new_cache = cross_attention(cfg, p["cross"], h, ctx, cache)
+    return x + o, new_cache
 
 
 def apply_block(cfg, p, kind: str, x, ctx: Ctx, cache=None,
@@ -318,7 +354,7 @@ def apply_stack(cfg, params: dict, x, ctx: Ctx, cache: Optional[dict] = None,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {}
 
-    def cycle(xc, aux, c: int, cycles):
+    def cycle(xc, aux, c: int, cycles, ctx: Ctx):
         caches = []
         for j, kind in enumerate(pattern):
             if cache is None:   # train: recurrent kinds start from zeros
@@ -337,14 +373,14 @@ def apply_stack(cfg, params: dict, x, ctx: Ctx, cache: Optional[dict] = None,
         for c in range(n_cycles):
             if remat and ctx.mode == "train" and ctx.run is not None:
                 x, aux_total, caches = parallel.remat(
-                    cycle, x, aux_total, c, params["cycles"])
+                    cycle, x, aux_total, c, params["cycles"], ctx)
             elif remat and ctx.mode == "train":
                 x, aux_total, caches = checkpoint(
-                    cycle, x, aux_total, c, params["cycles"],
+                    cycle, x, aux_total, c, params["cycles"], ctx,
                     use_reentrant=False)
             else:
                 x, aux_total, caches = cycle(x, aux_total, c,
-                                             params["cycles"])
+                                             params["cycles"], ctx)
             per_cycle.append(caches)
         if cache is not None:
             new_cache["cycles"] = tuple(

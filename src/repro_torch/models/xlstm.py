@@ -137,6 +137,19 @@ def _mlstm_recurrent_step(state, q, k, v, log_i, log_f):
     return {"c": c_new, "n": n_new, "m": m_new}, h
 
 
+def mlstm_cell(q, k, v, log_i, log_f, state, dtype):
+    """The mLSTM cell over a sequence: chunkwise when s > 1 (train,
+    prefill), one recurrent step otherwise (decode).  Returns (h
+    (b,s,h,dh) in ``dtype``, new state)."""
+    if q.shape[1] > 1:
+        hout, state = _mlstm_chunkwise(q, k, v, log_i, log_f, state)
+        return hout.to(dtype), state
+    state, h_t = _mlstm_recurrent_step(
+        state, q[:, 0].float(), k[:, 0].float(), v[:, 0].float(),
+        log_i[:, 0], log_f[:, 0])
+    return h_t[:, None].to(dtype), state
+
+
 def apply_mlstm_block(cfg, params, x, *, cache=None, pos=None):
     """x: (b, s, d) -> (out, new_cache)."""
     b, s, d = x.shape
@@ -156,14 +169,7 @@ def apply_mlstm_block(cfg, params, x, *, cache=None, pos=None):
 
     state = cache if cache is not None else init_mlstm_cache(cfg, b,
                                                              x.device)
-    if s > 1:   # train / prefill: chunkwise
-        hout, state = _mlstm_chunkwise(q, k, v, log_i, log_f, state)
-        hout = hout.to(x.dtype)
-    else:       # decode: one recurrent step
-        state, h_t = _mlstm_recurrent_step(
-            state, q[:, 0].float(), k[:, 0].float(), v[:, 0].float(),
-            log_i[:, 0], log_f[:, 0])
-        hout = h_t[:, None].to(x.dtype)
+    hout, state = mlstm_cell(q, k, v, log_i, log_f, state, x.dtype)
 
     hflat = _rms(hout.reshape(b, s, di), params["out_norm_scale"])
     mixed = hflat * gate + params["skip_scale"].to(x.dtype) * up
@@ -204,9 +210,14 @@ def init_slstm_block(cfg, gen, device=None) -> dict:
 def _slstm_step(r_zifo, b_zifo, state, zifo_x_t):
     """state: {c, n, m, h} each (b, heads, dh); zifo_x_t: (b, 4, h, dh)
     fp32, this step's pre-projected input gates; r_zifo, b_zifo fp32."""
-    c, n, m, h_prev = state["c"], state["n"], state["m"], state["h"]
-    zifo_r = torch.einsum("bhk,ghkl->bghl", h_prev, r_zifo)
-    pre = zifo_x_t + zifo_r + b_zifo
+    zifo_r = torch.einsum("bhk,ghkl->bghl", state["h"], r_zifo)
+    return slstm_update(state, zifo_x_t + zifo_r + b_zifo)
+
+
+def slstm_update(state, pre):
+    """One step's state update from its gate pre-activations ``pre``
+    (b, 4, h, dh) fp32: elementwise in (h, dh)."""
+    c, n, m = state["c"], state["n"], state["m"]
     z = torch.tanh(pre[:, 0])
     i_log = pre[:, 1]                        # exponential input gate (log)
     f_log = F.logsigmoid(pre[:, 2])          # sigmoid forget gate, log space

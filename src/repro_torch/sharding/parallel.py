@@ -12,23 +12,24 @@ its one controller and says explicitly where each piece runs:
   batch shard is a *group* of positions; every group runs the same
   block on its rows, one after another in mesh order.
 * **Model axis.**  Where the batch is not split over ``model``, a group
-  holds one position per model coordinate.  The dense blocks ("ga",
-  "la") split their compute there as their weights' specs say: q/k/v
-  heads column-parallel and ``wo`` row-parallel (KV projections the
-  policy replicates — KV heads that do not divide ``model`` — are
-  computed per position for the KV heads its query heads read, in
-  training; with a cache such attention is gathered), the FFN hidden dim
-  column- then row-parallel, each position's (b, s, d) partial summed
-  in mesh order in the output dtype (:func:`place.all_reduce`); the
-  embedding's vocab rows looked up with a mask and summed (exact); the
-  loss head's vocab columns reduced by their max and sum of exponentials
-  (:func:`group_xent`).  Heads that do not divide ``model`` take
-  sequence-parallel attention in training where the active rules
-  (``ctx.rules``) ask for ``attn_q``: each position computes its query
-  rows against whole K/V.  Every other block kind and leaf (MoE experts,
-  RG-LRU, xLSTM, convolutions, cross-attention, the encoder) is
-  gathered at use onto the group's first position and runs the
-  unsharded code there.
+  holds one position per model coordinate, and every block kind splits
+  its compute there as its leaves' specs say (:mod:`.blocks`): attention
+  (self and cross) over heads, the dense FFN and arctic's residual over
+  the hidden dim, MoE experts over E (or their hidden dim), the RG-LRU
+  over its width, the xLSTM cells over heads; each position's (b, s, d)
+  partial formed in fp32 and summed in mesh order
+  (:func:`place.all_reduce`), the sum rounded once to the activation
+  dtype.  The embedding's vocab rows are looked up
+  with a mask and summed (exact); the loss head's vocab columns reduced
+  by their max and sum of exponentials (:func:`group_xent`).  Heads that
+  do not divide ``model`` take sequence-parallel attention in training
+  where the active rules (``ctx.rules``) ask for ``attn_q``: each
+  position computes its query rows against whole K/V.  A leaf is
+  gathered at use onto the group's first position only where the policy
+  replicates it over ``model``.
+* **MoE aux.**  Each chunk's Switch term is taken once, from its
+  per-expert sums reduced over the groups in mesh order: the whole
+  batch's term, as GSPMD computes it.
 * **FSDP.**  A weight split over ``data`` is gathered at use, one cycle
   at a time inside ``apply_stack``'s loop (and again in the backward of
   a rematerialised cycle, :func:`remat`), never the whole tree at once.
@@ -52,19 +53,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.placement import tree_flatten
-from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
-from repro_torch.models.ffn import apply_ffn
-from repro_torch.models.layers import apply_norm
+from repro_torch.models.moe import aux_term
+from repro_torch.sharding import blocks
 from repro_torch.sharding import ctx as shctx
 from repro_torch.sharding import place
 from repro_torch.sharding.mesh import move_to
 from repro_torch.sharding.place import Sharded, _entry_axes
 from repro_torch.sharding.policy import batch_axes, tree_map_with_path
-
-# kinds whose attention and dense FFN split over the model axis
-TP_KINDS = ("ga", "la")
-
 
 class MeshRun:
     """How one call lays its batch over ``mesh``: ``batch_entry`` the
@@ -229,26 +225,30 @@ class _Remat(torch.autograd.Function):
                                for t in ins)
 
 
-def remat(cycle, x: Sharded, aux, c: int, cycles):
-    """``cycle(x, aux, c, cycles)`` (one cycle of ``apply_stack`` in
+def remat(cycle, x: Sharded, aux, c: int, cycles, ctx):
+    """``cycle(x, aux, c, cycles, ctx)`` (one cycle of ``apply_stack`` in
     training, its stacked parameters ``cycles``) with its activations
     recomputed in the backward: the role ``torch.utils.checkpoint``
-    plays unsharded.  The shards of ``x``, ``aux`` and every parameter
-    shard are the node's inputs, so their gradients come back through
-    it.  Returns (x, aux, [None] * blocks): training keeps no cache."""
+    plays unsharded.  The shards of ``x``, ``aux``, the encoder's output
+    ``ctx.enc_out`` and every parameter shard are the node's inputs, so
+    their gradients come back through it.  Returns (x, aux, [None] *
+    blocks): training keeps no cache."""
     xs = x.unique()
+    enc = ctx.enc_out
+    es = enc.unique() if isinstance(enc, Sharded) else []
     ps = list({id(t): t for leaf in tree_flatten(cycles)[0]
                for t in (leaf.unique() if isinstance(leaf, Sharded)
                          else [leaf])}.values())
     layout: dict = {}
 
     def run_fn(*ts):
-        sub = {id(a): b for a, b in zip(xs + [aux] + ps, ts)}
+        sub = {id(a): b for a, b in zip(xs + [aux] + es + ps, ts)}
         swap = (lambda leaf: leaf.map(lambda t: sub[id(t)])
                 if isinstance(leaf, Sharded) else sub[id(leaf)])
+        cx = dataclasses.replace(ctx, enc_out=swap(enc)) if es else ctx
         ox, oa, caches = cycle(x.map(lambda t: sub[id(t)]), ts[len(xs)], c,
                                tree_map_with_path(lambda _, leaf: swap(leaf),
-                                                  cycles))
+                                                  cycles), cx)
         uniq = ox.unique()
         if not layout:      # the output's layout, not its tensors: keeping
             index = {id(t): i for i, t in enumerate(uniq)}   # them would
@@ -258,7 +258,7 @@ def remat(cycle, x: Sharded, aux, c: int, cycles):
                               for pos, t in ox.shards.items()})
         return tuple(uniq) + (oa,)
 
-    outs = _Remat.apply(run_fn, *xs, aux, *ps)
+    outs = _Remat.apply(run_fn, *xs, aux, *es, *ps)
     ox = Sharded(x.mesh, layout["spec"], layout["shape"], outs[0].dtype,
                  {pos: outs[i] for pos, i in layout["where"].items()})
     return ox, outs[-1], [None] * layout["blocks"]
@@ -268,144 +268,62 @@ def remat(cycle, x: Sharded, aux, c: int, cycles):
 def apply_block(cfg, p, kind: str, x: Sharded, ctx, cache, *,
                 decoder: bool):
     """``transformer.apply_block`` on a Sharded residual stream: (x,
-    new_cache, aux).  A Sharded cache comes back laid out as it came; a
-    plain one (training's zero stubs) gives None; aux is the mean of the
-    groups'."""
+    new_cache, aux), each group's block run by :func:`blocks.block`.  A
+    Sharded cache comes back laid out as it came; a plain one (training's
+    zero stubs) gives None.  An MoE's aux is each chunk's Switch term of
+    the groups' sums reduced in mesh order (the whole batch's), averaged
+    over chunks; other kinds' is 0."""
     run = ctx.run
-    tp = run.split_model and kind in TP_KINDS and not tfm._has_cross(
-        cfg, kind, decoder)
-    xs, caches, auxes, heads = [], [], [], False
-    for i, ranks in enumerate(run.groups):
-        lead = ranks[0]
-        xi = run.local(x, i)
-        if tp:
-            xi, ci, heads = _tp_block(cfg, p, kind, x, xi, ctx, cache, run,
-                                      i)
-            aux = torch.zeros((), dtype=torch.float32, device=xi.device)
-        else:
-            xi, ci, aux = tfm.apply_block(
-                cfg, run.full(p, lead), kind, xi, run.ctx_for(ctx, i, lead),
-                run.local(cache, i), decoder=decoder)
-            ci = {lead: ci}
+    mode = (_attn_mode(cfg, p["attn"], run, ctx, x)
+            if kind in tfm.ATTN_KINDS else None)
+    xs, tiles, sums = [], {}, []
+    for i in range(len(run.groups)):
+        xi, ti, si = blocks.block(cfg, p, kind, run.local(x, i),
+                                  blocks.Group(run, i, ctx), cache,
+                                  decoder=decoder, mode=mode)
         xs.append(xi)
-        caches.append(ci)
-        auxes.append(aux)
-    aux = place.all_reduce(auxes) / len(auxes)
+        for k, (dim, t) in ti.items():
+            tiles.setdefault(k, (dim, {}))[1].update(t)
+        if si is not None:
+            sums.append(si)
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    if sums:
+        for chunk in zip(*sums):        # one chunk's sums of every group
+            routed, probs, n = zip(*chunk)
+            aux = aux + aux_term(cfg, place.all_reduce(list(routed)),
+                                 place.all_reduce(list(probs)), sum(n))
+        aux = aux / len(sums[0])
     new_cache = None
     if isinstance(cache, dict) and any(isinstance(v, Sharded)
                                        for v in cache.values()):
-        new_cache = _cache_out(run, cache, caches, heads)
+        new_cache = _cache_out(run, cache, tiles)
     return run.act(xs), new_cache, aux
 
 
-def _cache_out(run: MeshRun, cache: dict, caches: list, heads: bool) -> dict:
-    """Per-group new caches (per model position, split on the KV heads,
-    with ``heads``) as Sharded leaves laid out like ``cache``'s."""
+def _cache_out(run: MeshRun, cache: dict, tiles: dict) -> dict:
+    """The groups' new cache pieces (``tiles``: key -> (the dim split
+    over model, or None for a piece whole on its lead; {pos: piece})) as
+    Sharded leaves laid out like ``cache``'s."""
     out = {}
     for k, like in cache.items():
-        tiles = {pos: c[k] for per in caches for pos, c in per.items()}
-        t0 = next(iter(tiles.values()))
-        spec = [run.batch_entry] + [None] * (t0.ndim - 1)
-        if heads and k in ("k", "v"):
-            spec[2] = "model"
-        out[k] = run.from_tiles(tiles, tuple(spec), like.shape, like)
+        dim, ts = tiles[k]
+        spec = [run.batch_entry] + [None] * (like.ndim - 1)
+        if dim is not None:
+            spec[dim] = "model"
+        out[k] = run.from_tiles(ts, tuple(spec), like.shape, like)
     return out
 
 
 def _attn_mode(cfg, pa: dict, run: MeshRun, ctx, x: Sharded) -> str:
-    """"heads" (q heads column-, wo row-parallel; k/v too, or — in
-    training, where no cache holds them — each position projecting the
-    KV heads its query heads read), "seq" (query rows over model,
-    training under an ``attn_q`` rule) or "gather"."""
-    if run.split_on(pa["wq"], 1) and run.split_on(pa["wo"], 0) and (
-            ctx.mode == "train"
-            or all(run.split_on(pa[w], 1) for w in ("wk", "wv"))):
+    """"heads" (query heads column-, wo row-parallel: heads that divide
+    model), "seq" (query rows over model, training under an ``attn_q``
+    rule) or "gather" (the policy replicates the projections)."""
+    if run.split_on(pa["wq"], 1) and run.split_on(pa["wo"], 0):
         return "heads"
     shape = (x.shape[0], x.shape[1], cfg.n_heads, cfg.head_dim)
     if ctx.mode == "train" and shctx.spec_for("attn_q", shape) is not None:
         return "seq"
     return "gather"
-
-
-def _tp_block(cfg, p, kind, x, xi, ctx, cache, run: MeshRun, i: int):
-    """A dense block ("ga" / "la") of group ``i`` with its compute split
-    over the model axis where the specs allow: (x_i, {pos: new cache},
-    whether the attention split its heads)."""
-    ranks = run.groups[i]
-    lead = ranks[0]
-    h = apply_norm(cfg, run.full(p["norm1"], lead), xi)
-    mode = _attn_mode(cfg, p["attn"], run, ctx, x)
-    caches = {}
-    if mode == "heads":
-        parts = []
-        for pos in ranks:
-            hm = h if pos == lead else place.broadcast(h, run.device(pos))
-            pa = {w: run.piece(p["attn"][w], pos, 0 if w == "wo" else 1)
-                  for w in ("wq", "wo")}
-            for w in ("wk", "wv"):
-                if run.split_on(p["attn"][w], 1):
-                    pa[w] = run.piece(p["attn"][w], pos, 1)
-                else:   # the KV head of each local query head, in order
-                    hl = pa["wq"].shape[1]
-                    g = cfg.n_heads // cfg.n_kv_heads
-                    m = run.model_index(pos)
-                    idx = torch.arange(m * hl, (m + 1) * hl) // g
-                    pa[w] = run.full(p["attn"][w], pos)[:, idx.to(
-                        run.device(pos))]
-            pa.update({k: run.full(v, pos) for k, v in p["attn"].items()
-                       if k not in pa})
-            cm = None
-            if cache is not None:       # this position's KV heads
-                m, nm = run.model_index(pos), run.mesh.shape["model"]
-                kvh = cache["k"].shape[2] // nm
-                rows = run.rows(i, cache["k"].shape[0])
-                cm = {k: run.region(v, {0: rows, 2: (m * kvh,
-                                                     (m + 1) * kvh)}, pos)
-                      for k, v in cache.items()}
-            o, caches[pos] = tfm.self_attention(
-                cfg, pa, hm, kind, run.ctx_for(ctx, i, pos), cm)
-            parts.append(o)
-        xi = xi + place.all_reduce(parts)
-    elif mode == "seq":
-        nm = len(ranks)
-        s = h.shape[1]
-        parts = []
-        for m, pos in enumerate(ranks):
-            hm = h if pos == lead else place.broadcast(h, run.device(pos))
-            pa = run.full(p["attn"], pos)
-            cx = run.ctx_for(ctx, i, pos)
-            lo, hi = m * s // nm, (m + 1) * s // nm     # this position's rows
-            q = attn.project_q(cfg, pa, hm[:, lo:hi], cx.cos[:, lo:hi],
-                               cx.sin[:, lo:hi])
-            k, v = attn.project_kv(cfg, pa, hm, cx.cos, cx.sin)
-            o = attn.attention(cfg, q, k, v, q_pos=cx.q_pos[:, lo:hi],
-                               k_pos=cx.q_pos, causal=kind != "enc",
-                               window=cfg.window_size if kind == "la"
-                               else None, q_chunk=cx.q_chunk)
-            o = attn.out_proj(pa, o)
-            parts.append(o if pos == lead
-                         else place.broadcast(o, run.device(lead)))
-        xi = xi + torch.cat(parts, dim=1)
-    else:
-        ci = run.local(cache, i)
-        o, caches[lead] = tfm.self_attention(
-            cfg, run.full(p["attn"], lead), h, kind,
-            run.ctx_for(ctx, i, lead), ci)
-        xi = xi + o
-    h2 = apply_norm(cfg, run.full(p["norm2"], lead), xi)
-    pf = p["ffn"]
-    if (all(run.split_on(pf[w], 1) for w in pf if w != "w_out")
-            and run.split_on(pf["w_out"], 0)):
-        parts = []
-        for pos in ranks:
-            hm = h2 if pos == lead else place.broadcast(h2, run.device(pos))
-            pm = {w: run.piece(t, pos, 0 if w == "w_out" else 1)
-                  for w, t in pf.items()}
-            parts.append(apply_ffn(cfg, pm, hm))
-        xi = xi + place.all_reduce(parts)
-    else:
-        xi = xi + apply_ffn(cfg, run.full(pf, lead), h2)
-    return xi, caches, mode == "heads"
 
 
 def per_group(run: MeshRun, fn, x: Sharded, params) -> Sharded:
@@ -543,4 +461,4 @@ def logits(run: MeshRun, model, params, h: Sharded, *,
 
 
 __all__ = ["MeshRun", "run_for", "apply_block", "per_group", "embed",
-           "head_pieces", "group_xent", "loss", "logits", "TP_KINDS"]
+           "head_pieces", "group_xent", "loss", "logits"]

@@ -232,16 +232,34 @@ class Sharded:
         spec = full_spec(spec, self.ndim)
         if spec == self.spec and len(self.shards) == self.mesh.devices.size:
             return self
-        out = Sharded(self.mesh, spec, self.shape, self.dtype, {})
+        return self._laid(spec, self.shape)
+
+    def take(self, dim: int, lo: int, hi: int) -> "Sharded":
+        """Indices [lo, hi) of ``dim`` laid out by this spec: each
+        position's block of the slice assembled from the blocks holding
+        it (a microbatch cut from the global batch, re-laid over the
+        batch axes)."""
+        shape = list(self.shape)
+        shape[dim] = hi - lo
+        return self._laid(self.spec, shape, {dim: lo})
+
+    def _laid(self, spec: tuple, shape, offset: Optional[dict] = None
+              ) -> "Sharded":
+        """A Sharded of ``shape`` laid out by ``spec`` whose element at
+        index i is this one's at i + ``offset`` (dim -> start)."""
+        out = Sharded(self.mesh, spec, shape, self.dtype, {})
         out.check()
         bs = out.block_shape()
+        offset = offset or {}
         memo: dict = {}
         for pos in positions(self.mesh):
             blk = out.block(pos)
             dev = position_device(self.mesh, pos)
             key = (blk, dev)
             if key not in memo:
-                region = [(b * s, (b + 1) * s) for b, s in zip(blk, bs)]
+                region = [(b * s + offset.get(d, 0),
+                           (b + 1) * s + offset.get(d, 0))
+                          for d, (b, s) in enumerate(zip(blk, bs))]
                 memo[key] = assemble(self, region, dev, pos)
             out.shards[pos] = memo[key]
         return out
@@ -401,18 +419,6 @@ def leafwise(fn: Callable, x, *others):
     return fn(x, *others)
 
 
-def split(x: Sharded, n: int, dim: int) -> list[Sharded]:
-    """``x`` cut into ``n`` parts along ``dim``, each shard cut in place:
-    part j holds rows [j * r / n, (j + 1) * r / n) of every shard's r."""
-    rows = x.block_shape()[dim]
-    if rows % n:
-        raise ValueError(f"{rows} rows a shard do not split into {n}")
-    shape = list(x.shape)
-    shape[dim] //= n
-    return list(x.map_many(lambda t: torch.split(t, rows // n, dim=dim),
-                           shape=shape))
-
-
 def reduce_copies(x: Sharded) -> Sharded:
     """Copies of one block on distinct devices summed in mesh order (an
     all-reduce over the axes the spec replicates), the sum on each of
@@ -430,6 +436,6 @@ def reduce_copies(x: Sharded) -> Sharded:
 
 
 __all__ = ["NamedSharding", "Sharded", "Traffic", "traffic", "place",
-           "leafwise", "split", "reduce_copies",
+           "leafwise", "reduce_copies",
            "gather", "device_bytes", "shard", "assemble", "all_reduce",
            "broadcast", "stack", "positions", "position_device", "full_spec"]

@@ -13,7 +13,8 @@ from one numpy tree.  Tolerances:
 
 * loss within LOSS_ATOL = 1e-2 and each gradient leaf within GRAD_RTOL =
   3e-2 relative L2 (tests/test_torch_train.py's): the model axis sums
-  each position's bf16 partial in bf16, as GSPMD's bf16 all-reduce does;
+  each position's fp32 partial in mesh order and rounds the sum once to
+  bf16, and the backward sums the bf16 cotangents of a broadcast input;
 * logits within LOGIT_ATOL = 0.125 and greedy tokens equal wherever the
   reference's top-2 margin exceeds MARGIN = 0.25
   (tests/test_torch_models.py's);
@@ -331,10 +332,11 @@ def test_heads_that_do_not_divide_take_sequence_parallel_attention(
                                   "recurrentgemma-2b"])
 def test_every_block_kind_runs_under_every_layout(arch, layout):
     """An MoE and a recurrent config (reduced) under both layouts on a
-    (4, 2) mesh: the experts, the RG-LRU and its convolution are
-    gathered at use, recurrentgemma's "la" blocks split their heads;
-    loss and grads within tolerance of the port's unsharded step, the
-    loss of the reference's."""
+    (4, 2) mesh: under the hybrid layout the experts split over model,
+    the RG-LRU and its convolution over their width, the "gm" and "la"
+    blocks' attention over heads (tests/test_torch_parallel_blocks.py
+    holds each kind); loss and grads within tolerance of the port's
+    unsharded step, the loss of the reference's."""
     tcfg, rcfg = cfgs(arch)
     tree = numpy_params(tcfg, 5)
     nb = np_batch(tcfg, seed=6)
