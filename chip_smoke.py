@@ -7,7 +7,7 @@ Run from the root of a checkout:
                           [--ckpt-mib 512] [--serve-mib 256]
 
 It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
-``build/kernels/`` and runs fifteen phases, each printing one JSON line:
+``build/kernels/`` and runs eighteen phases, each printing one JSON line:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA;
 2. build    both kernels, one nvcc per source, started together;
@@ -168,9 +168,26 @@ It builds the port's Hopper kernels from ``src/repro_torch/csrc`` into
             state saved through MSRCheckpointer (circulant_encode),
             files equal to an unsharded save's, restored with node 5
             lost (gf_matmul), re-placed bit-exactly, its next step
-            bit-equal to the step without the round trip.
+            bit-equal to the step without the round trip;
+16. parallel_families
+            every block kind split over the model axis: the families
+            phase's four configs trained and served on the (2, 2) mesh
+            against their unsharded steps, and an MoE state checkpointed
+            with its experts split;
+17. examples
+            the reference's quickstart, store_demo and serve_demo through
+            their twins (repro_torch.examples) at the reference's default
+            sizes on the card: wall seconds, launches by example and
+            every invariant of the reference (bit-exact regeneration,
+            reads and restores, repair traffic below RS's, tokens equal
+            healthy / degraded / healed, availability 1.0); gf256.matmul
+            (16, 16) @ (16, 2^20) on the card bit-equal to the CPU's;
+18. dryrun  repro_torch.launch.dryrun on the host's CPU (meta device, no
+            kernel): the reference's reduced smoke cell on a (4, 2) mesh
+            with its invariants, and arctic-480b at full depth on the
+            16 x 16 mesh (DRYRUN_CELL), its run_s.
 
-Then a ``kernels`` JSON line (launches by path), the ``nvidia-smi``
+Then a ``done`` line with the smoke's total seconds, a ``kernels`` JSON line (launches by path), the ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the script exits non-zero.  Without CUDA, or run outside a checkout, it
 exits non-zero before printing any result.  The script imports nothing
@@ -3853,9 +3870,159 @@ def phase_parallel_families(torch, np, gfm, circ, stored: dict,
     return out
 
 
+# the example twins: the reference's ledger lines each must print
+EXAMPLE_LINES = {
+    "quickstart": ("regenerated BIT-EXACTLY in one fused matmul",
+                   "decode-inverse cache: 1 hit / 1 miss"),
+    "store_demo": ("[degraded]", "BIT-EXACT", "[checkpoint] store-backed",
+                   "scheduler repairs at-risk stripes first",
+                   "[scheduler] drained", "/ 0 failed"),
+    "serve_demo": ("[degraded] re-served", "BIT-EXACTLY", "[repair] rebuilt",
+                   "availability=1.0"),
+}
+GF256_SHAPE = (16, 16, 1 << 20)     # gf256.matmul: (m, k) @ (k, n)
+
+
+def phase_examples(torch, np, gfm, circ, keep: dict) -> dict:
+    """The reference's three examples through their twins
+    (``repro_torch.examples``) at the reference's default sizes on the
+    card: quickstart (a 4 MiB file at [8, 4]: one encode, the fused
+    regeneration of node 3 bit-exact, any-k reconstruction twice with one
+    decode-cache hit), store_demo (6 objects of 96 KiB at [8, 4] on 12
+    nodes: rack 0 lost, store-backed checkpoint restore, a node dying
+    mid-drain, at-risk stripes repaired first, repair traffic below RS's,
+    every get bit-exact) and serve_demo (qwen3-4b reduced served from a
+    CodedReadServer at [8, 4]: tokens equal healthy, with rack 0 killed
+    and after repair_now, availability 1.0).  Each asserts its invariants
+    itself; here its ledger lines are checked too.  Kernel counts set to
+    0 just before each example and read just after.  Then
+    ``gf256.matmul`` (16, 16) @ (16, 2^20) on the card, bit-equal to the
+    CPU's."""
+    import contextlib
+    import io
+    from repro_torch.core import gf256
+    from repro_torch.examples import quickstart, serve_demo, store_demo
+
+    out: dict = {"examples": {}}
+    total = {"gf_matmul": 0, "circulant_encode": 0}
+    for name, mod in (("quickstart", quickstart), ("store_demo", store_demo),
+                      ("serve_demo", serve_demo)):
+        gfm.launches = 0
+        circ.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = counted(gfm, circ)
+        text = buf.getvalue()
+        for line in EXAMPLE_LINES[name]:
+            require(line in text, f"{name} prints {line!r}")
+        require(n["gf_matmul"] >= 1, f"{name} repairs or decodes on the "
+                                     f"card: {n}")
+        if name != "serve_demo":
+            require(n["circulant_encode"] >= 1,
+                    f"{name} encodes on the card: {n}")
+        for k in total:
+            total[k] += n[k]
+        out["examples"][name] = {"seconds": wall, "launches": n,
+                                 "lines": text.splitlines()}
+    m, k, n_cols = GF256_SHAPE
+    rng = np.random.default_rng(256)
+    a = torch.from_numpy(rng.integers(0, 256, (m, k)).astype(np.int32))
+    b = torch.from_numpy(rng.integers(0, 256, (k, n_cols)).astype(np.int32))
+    t0 = time.perf_counter()
+    want = gf256.matmul(a, b)
+    cpu_s = time.perf_counter() - t0
+    a_c, b_c = a.cuda(), b.cuda()
+    gf256.matmul(a_c, b_c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = gf256.matmul(a_c, b_c)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    require(got.device.type == "cuda" and torch.equal(got.cpu(), want),
+            "gf256.matmul on the card is bit-equal to the CPU's")
+    out["gf256_matmul"] = {"shape": [m, k, n_cols], "bit_equal": True,
+                           "card_ms": card_s * 1e3, "cpu_ms": cpu_s * 1e3}
+    del a_c, b_c, got
+    torch.cuda.empty_cache()
+    out["launches"] = total
+    return out
+
+
+# the production cell the dryrun phase runs (arctic-480b x train_4k took
+# more than 60 s on the host: PERF.md)
+DRYRUN_CELL = ("arctic-480b", "decode_32k", False)
+
+
+def phase_dryrun(torch, np, gfm, circ, keep: dict) -> dict:
+    """``repro_torch.launch.dryrun`` on the host's CPU (the meta device;
+    no kernel runs): the reference's reduced smoke cell (qwen3-4b reduced
+    as tests/test_hlo_stats.py cuts it, 8 x 64 tokens on a (4, 2) mesh)
+    with the record's invariants, then one production cell,
+    ``DRYRUN_CELL`` on the 16 x 16 mesh at full depth, with its run_s.
+    Kernel counts set to 0 just before and read just after (0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    gfm.launches = 0
+    circ.launches = 0
+    cfg = get_config("qwen3-4b").reduced(
+        n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
+        d_ff=64, vocab_size=256, loss_chunk=16)
+    shape = ShapeConfig("train_smoke", 64, 8, "train")
+    rec = dryrun.lower_cell("qwen3-4b", "train_smoke", cfg=cfg, shape=shape,
+                            mesh=dryrun.meta_mesh((4, 2), ("data", "model")))
+    six_nd = 6 * rec["n_active_params"] * rec["tokens_per_step"] / 8
+    require(rec["mesh"] == "mesh4x2" and rec["n_devices"] == 8
+            and rec["dynamic"]["collectives"]["total_bytes"] > 0
+            and rec["per_position"]["flops"] > 0.5 * six_nd,
+            f"the reduced dry-run cell's invariants: {rec['per_position']}")
+    arch, shape_name, multi_pod = DRYRUN_CELL
+    prod = dryrun.lower_cell(arch, shape_name, multi_pod=multi_pod)
+    require(prod["n_params"] == 476_850_275_328
+            and prod["n_active_params"] == 11_980_674_048
+            and prod["n_devices"] == 256
+            and prod["dynamic"]["flops"] > 0
+            and prod["dynamic"]["collectives"]["total_bytes"] > 0,
+            f"{arch} x {shape_name} at full depth: {prod['per_position']}")
+    if prod["kind"] == "train":
+        require(prod["per_position"]["flops"] > 0.5 * 6
+                * prod["n_active_params"] * prod["tokens_per_step"] / 256,
+                "the production cell's flops above half of 6 N T")
+    n = counted(gfm, circ)
+    require(n == {"gf_matmul": 0, "circulant_encode": 0},
+            f"the dry run launches no kernel: {n}")
+    keep_keys = ("arch", "shape", "mesh", "layout", "n_microbatches",
+                 "n_params", "n_active_params", "memory", "per_position",
+                 "run_s")
+    return {"reduced_cell": {k: rec.get(k) for k in keep_keys},
+            "production_cell": {**{k: prod.get(k) for k in keep_keys},
+                                **{k: prod["dynamic"][k] for k in (
+                                    "depth_run", "groups_run",
+                                    "steps_run")}},
+            "cpu": host_cpu(), "launches": n}
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (from /proc/cpuinfo) and core count."""
+    try:
+        name = next(ln.split(":", 1)[1].strip()
+                    for ln in Path("/proc/cpuinfo").read_text().splitlines()
+                    if ln.startswith("model name"))
+    except (OSError, StopIteration):
+        name = "unknown"
+    return f"{name} x {os.cpu_count()}"
+
+
 # --only: phases run alone after the build, in order
 ONLY = {"parallel_families": ("parallel_families",),
-        "families,parallel_families": ("families", "parallel_families")}
+        "families,parallel_families": ("families", "parallel_families"),
+        "examples": ("examples",), "dryrun": ("dryrun",),
+        "examples,dryrun": ("examples", "dryrun")}
 
 
 def main() -> int:
@@ -3921,7 +4088,8 @@ def main() -> int:
         for phase in ONLY[args.only]:
             t0 = time.perf_counter()
             fn = {"families": phase_families,
-                  "parallel_families": phase_parallel_families}[phase]
+                  "parallel_families": phase_parallel_families,
+                  "examples": phase_examples, "dryrun": phase_dryrun}[phase]
             emit({"phase": phase, "ok": True, "card": smi,
                   **fn(torch, np, gfm, circ, kept),
                   "seconds": time.perf_counter() - t0})
@@ -4059,11 +4227,22 @@ def main() -> int:
     emit({"phase": "parallel_families", "ok": True, "card": smi, **pf_res,
           "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
+    ex_res = phase_examples(torch, np, gfm, circ, kept)
+    emit({"phase": "examples", "ok": True, "card": smi, **ex_res,
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    dry_res = phase_dryrun(torch, np, gfm, circ, kept)
+    emit({"phase": "dryrun", "ok": True, "card": smi, **dry_res,
+          "seconds": time.perf_counter() - t0})
+
     paths = {"main": main_res, "store": store_res, "checkpoint": ckpt_res,
              "serve": serve_res, "cluster": cluster_res, "drills": drill_res,
              "shard": shard_res, "model": model_res, "families": families_res,
              "train": train_res, "parallel": parallel_res,
-             "parallel_families": pf_res}
+             "parallel_families": pf_res, "examples": ex_res,
+             "dryrun": dry_res}
     source = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                             "src/repro/kernels/gf_matmul.py:96", "decode"),
               "circulant_encode": ("src/repro_torch/csrc/circulant_encode.cu",

@@ -109,7 +109,7 @@ class Model:
         enc_cfg = self._encoder_cfg()
         x = batch["enc_embeds"].to(COMPUTE_DTYPE)
         if run is not None and not isinstance(x, Sharded):
-            x = run.act([run.local(x, i) for i in range(len(run.groups))])
+            x = run.act(run.each(lambda i: run.local(x, i)))
         b, s, _ = x.shape
         pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
             b, s)

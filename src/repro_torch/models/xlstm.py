@@ -22,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import sampling
+
 from .layers import PARAM_DTYPE, dense_init, sigmoid, silu
 
 NEG_INF = -1e30
@@ -240,10 +242,10 @@ def apply_slstm_block(cfg, params, x, *, cache=None, pos=None):
                           params["w_zifo"].float())
     r_zifo, b_zifo = params["r_zifo"].float(), params["b_zifo"].float()
     hs = []
-    for t in range(s):
+    for t in sampling.steps(s, x):
         state = _slstm_step(r_zifo, b_zifo, state, zifo_x[t])
         hs.append(state["h"])
-    y = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
+    y = sampling.stack(hs, s, 1).reshape(b, s, d).to(x.dtype)
     y = _rms(y, params["norm_scale"])
     # post MLP (gated)
     hmid = silu(y @ params["w_mlp_gate"].to(x.dtype)) * (

@@ -78,7 +78,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models import xlstm
 from repro_torch.models.ffn import apply_ffn
 from repro_torch.models.layers import COMPUTE_DTYPE, apply_norm, gelu, silu
-from repro_torch.sharding import place
+from repro_torch.sharding import place, sampling
 from repro_torch.sharding.mesh import move_to
 
 
@@ -671,7 +671,7 @@ def _slstm_dh(cfg, p: dict, h, g: Group, cache):
             g.cache(cache, pos, dict.fromkeys("cnmh", 2), (lo, hi)),
             xlstm.init_slstm_cache(cfg, b, hm.device), lo, hi, 2))
     hs: list = [[] for _ in g.ranks]
-    for t in range(s):
+    for t in sampling.steps(s, h):
         partial = [torch.einsum("bhk,ghkl->bghl", st["h"], r)
                    for st, r in zip(states, rz)]
         for j, pos in enumerate(g.ranks):
@@ -680,7 +680,7 @@ def _slstm_dh(cfg, p: dict, h, g: Group, cache):
                          pos)
             states[j] = xlstm.slstm_update(states[j], zx[j][t] + zr + bz[j])
             hs[j].append(states[j]["h"])
-    y = torch.cat([g.to_lead(torch.stack(hj, dim=1), pos)
+    y = torch.cat([g.to_lead(sampling.stack(hj, s, 1), pos)
                    for hj, pos in zip(hs, g.ranks)], dim=-1)
     y = xlstm._rms(y.reshape(b, s, d).to(h.dtype),
                    run.full(p["norm_scale"], lead))
@@ -721,10 +721,10 @@ def slstm_mixer(cfg, p: dict, h, g: Group, cache):
             g.cache(cache, pos, dict.fromkeys("cnmh", 1), (lo, hi)),
             xlstm.init_slstm_cache(cfg, b, hm.device), lo, hi)
         hs = []
-        for t in range(s):
+        for t in sampling.steps(s, h):
             state = xlstm._slstm_step(r_zifo, b_zifo, state, zifo_x[t])
             hs.append(state["h"])
-        ys.append(torch.stack(hs, dim=1).reshape(b, s, -1).to(h.dtype))
+        ys.append(sampling.stack(hs, s, 1).reshape(b, s, -1).to(h.dtype))
         _add_tiles(tiles, state, 1, pos)
     y = g.all_gather(_rms_parts(g, ys, p["norm_scale"], d), -1)
     # the gated post MLP is a SwiGLU FFN: split as the policy splits it

@@ -47,7 +47,7 @@ cards.  A copy between two cards of one host is a peer copy.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -57,7 +57,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.moe import aux_term
 from repro_torch.sharding import blocks
 from repro_torch.sharding import ctx as shctx
-from repro_torch.sharding import place
+from repro_torch.sharding import place, sampling
 from repro_torch.sharding.mesh import move_to
 from repro_torch.sharding.place import Sharded, _entry_axes
 from repro_torch.sharding.policy import batch_axes, tree_map_with_path
@@ -90,6 +90,18 @@ class MeshRun:
 
     def device(self, pos) -> torch.device:
         return place.position_device(self.mesh, pos)
+
+    def each(self, fn: Callable) -> list:
+        """``[fn(i) for each group i]``, in mesh order (in a dry run's
+        ``sampling.sample``, stand-ins past its live groups)."""
+        n = len(self.groups)
+        live = sampling.live_groups(n)
+        if live < n and any(torch.device(d).type != "meta"
+                            for d in self.mesh.devices.flat):
+            raise ValueError("only a mesh of meta positions may be sampled")
+        outs = [fn(i) for i in range(live)]
+        return outs + [sampling.stand_in(outs[0], dict(zip(
+            self.groups[0], self.groups[i]))) for i in range(live, n)]
 
     def model_index(self, pos) -> int:
         return dict(zip(self.mesh.shape, pos))["model"]
@@ -277,10 +289,9 @@ def apply_block(cfg, p, kind: str, x: Sharded, ctx, cache, *,
     mode = (_attn_mode(cfg, p["attn"], run, ctx, x)
             if kind in tfm.ATTN_KINDS else None)
     xs, tiles, sums = [], {}, []
-    for i in range(len(run.groups)):
-        xi, ti, si = blocks.block(cfg, p, kind, run.local(x, i),
-                                  blocks.Group(run, i, ctx), cache,
-                                  decoder=decoder, mode=mode)
+    for xi, ti, si in run.each(lambda i: blocks.block(
+            cfg, p, kind, run.local(x, i), blocks.Group(run, i, ctx), cache,
+            decoder=decoder, mode=mode)):
         xs.append(xi)
         for k, (dim, t) in ti.items():
             tiles.setdefault(k, (dim, {}))[1].update(t)
@@ -329,8 +340,8 @@ def _attn_mode(cfg, pa: dict, run: MeshRun, ctx, x: Sharded) -> str:
 def per_group(run: MeshRun, fn, x: Sharded, params) -> Sharded:
     """``fn(x_i, params)`` on each group's rows with ``params`` gathered
     at use on its lead (a norm, a cast), as one activation."""
-    return run.act([fn(run.local(x, i), run.full(params, g[0]))
-                    for i, g in enumerate(run.groups)])
+    return run.act(run.each(lambda i: fn(run.local(x, i),
+                                         run.full(params, run.groups[i][0]))))
 
 
 # ----------------------------------------------------- embed and head
@@ -339,27 +350,26 @@ def embed(run: MeshRun, params, batch: dict, dtype) -> Sharded:
     vocab split over ``model``: each position looks its rows up with a
     mask, and the groups' partials are summed (one nonzero: exact)."""
     if "inputs_embeds" in batch:
-        return run.act([run.local(batch["inputs_embeds"], i).to(dtype)
-                        for i in range(len(run.groups))])
+        return run.act(run.each(
+            lambda i: run.local(batch["inputs_embeds"], i).to(dtype)))
     table = params["embed"]
-    parts = []
-    for i, ranks in enumerate(run.groups):
-        lead = ranks[0]
-        if run.split_on(table, 0):
-            rows = []
-            for pos in ranks:
-                piece = run.piece(table, pos, 0)
-                n = piece.shape[0]
-                idx = run.local(batch["tokens"], i, pos).long() \
-                    - run.model_index(pos) * n
-                ok = (idx >= 0) & (idx < n)
-                r = piece[idx.clamp(0, n - 1)]
-                rows.append(torch.where(ok[..., None], r, r.new_zeros(())))
-            parts.append(place.all_reduce(rows).to(dtype))
-        else:
-            parts.append(run.full(table, lead)[
-                run.local(batch["tokens"], i)].to(dtype))
-    return run.act(parts)
+
+    def part(i):
+        ranks = run.groups[i]
+        if not run.split_on(table, 0):
+            return run.full(table, ranks[0])[
+                run.local(batch["tokens"], i)].to(dtype)
+        rows = []
+        for pos in ranks:
+            piece = run.piece(table, pos, 0)
+            n = piece.shape[0]
+            idx = run.local(batch["tokens"], i, pos).long() \
+                - run.model_index(pos) * n
+            ok = (idx >= 0) & (idx < n)
+            r = piece[idx.clamp(0, n - 1)]
+            rows.append(torch.where(ok[..., None], r, r.new_zeros(())))
+        return place.all_reduce(rows).to(dtype)
+    return run.act(run.each(part))
 
 
 def head_pieces(run: MeshRun, model, params, i: int) -> list:
@@ -429,11 +439,9 @@ def loss(model, params, batch: dict, *, remat: bool = True):
     mean."""
     h, _, aux = model.forward(params, batch, "train", remat=remat)
     run = run_for(params, batch)
-    totals = []
-    for i in range(len(run.groups)):
-        totals.append(group_xent(run, model.cfg, run.local(h, i),
-                                 run.local(batch["labels"], i),
-                                 head_pieces(run, model, params, i)))
+    totals = run.each(lambda i: group_xent(
+        run, model.cfg, run.local(h, i), run.local(batch["labels"], i),
+        head_pieces(run, model, params, i)))
     b, s = h.shape[0], h.shape[1]
     xent = place.all_reduce(totals) / (b * s)
     return xent + 0.01 * aux, {"xent": xent, "aux": aux}
@@ -444,20 +452,19 @@ def logits(run: MeshRun, model, params, h: Sharded, *,
     """fp32 logits of Sharded hidden states (b, s, d) (of the last
     position only with ``last``): each head block's bf16 product,
     concatenated over the vocab on the group's lead."""
-    parts = []
-    for i, ranks in enumerate(run.groups):
+    def part(i):
+        lead = run.groups[i][0]
         hi = run.local(h, i)
         if last:
             hi = hi[:, -1:]
         outs = []
         for pos, blk, _ in head_pieces(run, model, params, i):
-            hm = hi if pos == ranks[0] else place.broadcast(
-                hi, run.device(pos))
+            hm = hi if pos == lead else place.broadcast(hi, run.device(pos))
             lg = (hm @ blk.to(hm.dtype)).float()
-            outs.append(lg if pos == ranks[0]
-                        else place.broadcast(lg, run.device(ranks[0])))
-        parts.append(torch.cat(outs, dim=-1))
-    return run.act(parts)
+            outs.append(lg if pos == lead
+                        else place.broadcast(lg, run.device(lead)))
+        return torch.cat(outs, dim=-1)
+    return run.act(run.each(part))
 
 
 __all__ = ["MeshRun", "run_for", "apply_block", "per_group", "embed",

@@ -54,12 +54,16 @@ class NamedSharding:
 class Traffic:
     """Bytes moved between mesh positions since the last :meth:`reset`:
     ``gather_bytes`` (blocks and broadcasts read by another position)
-    and ``reduce_bytes`` (partials summed onto another position)."""
+    and ``reduce_bytes`` (partials summed onto another position), and
+    the number of such moves, ``gathers`` and ``reduces``."""
     gather_bytes: int = 0
     reduce_bytes: int = 0
+    gathers: int = 0
+    reduces: int = 0
 
     def reset(self) -> None:
         self.gather_bytes = self.reduce_bytes = 0
+        self.gathers = self.reduces = 0
 
 
 traffic = Traffic()
@@ -292,6 +296,7 @@ def assemble(src: Sharded, region, device: torch.device,
                 t = t.narrow(d, a, z - a)
         if pos is not None and hold_pos != pos:
             traffic.gather_bytes += nbytes(t)
+            traffic.gathers += 1
         pieces.append(move_to(t, device))
     # concatenate the grid of pieces, the last dim first
     shape = [len(r) for r in ranges]
@@ -310,6 +315,7 @@ def all_reduce(partials: list[torch.Tensor]) -> torch.Tensor:
     acc = partials[0]
     for p in partials[1:]:
         traffic.reduce_bytes += nbytes(p)
+        traffic.reduces += 1
         acc = acc + move_to(p, dev)
     return acc
 
@@ -317,6 +323,7 @@ def all_reduce(partials: list[torch.Tensor]) -> torch.Tensor:
 def broadcast(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     """``x`` on ``device`` for another position (counted as gathered)."""
     traffic.gather_bytes += nbytes(x)
+    traffic.gathers += 1
     return move_to(x, device)
 
 
