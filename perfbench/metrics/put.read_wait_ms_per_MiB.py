@@ -1,0 +1,8 @@
+"""put.read_wait_ms_per_MiB: ``stage_stats()["t_read_wait"]``, the calling
+thread blocked on a window's flatten (the pipeline's read) on the pool,
+in milliseconds per MiB put."""
+from perfbench import stage_metrics as sm
+
+
+def read(rec):
+    return sm.ms_per_mib(rec, "t_read_wait", sm.put_mib(rec))

@@ -12,7 +12,6 @@ copied from the reference so the port imports nothing of it.
 """
 from __future__ import annotations
 
-from time import perf_counter
 from typing import Sequence
 
 import numpy as np
@@ -23,11 +22,11 @@ from repro_torch.device import as_int32, device_of
 DEFAULT_P = 257
 
 
-def record_stage(name: str, seconds: float) -> None:
+def staged(name: str):
     # lazy import: the stage clock lives in repro_torch.exec.staging and
     # core carries no module-level edge into exec
-    from repro_torch.exec.staging import record_stage as rec
-    rec(name, seconds)
+    from repro_torch.exec.staging import staged as st
+    return st(name)
 
 
 # ---------------------------------------------------------------------------
@@ -234,10 +233,9 @@ def bytes_to_symbols_into(data: bytes | np.ndarray, out: np.ndarray,
     if out.dtype != np.int32 or out.ndim != 1 or out.size < arr.size:
         raise ValueError(f"need flat int32 out of >= {arr.size} symbols, "
                          f"got {out.dtype} {out.shape}")
-    t0 = perf_counter()
-    out[:arr.size] = arr
-    out[arr.size:] = 0
-    record_stage("pack", perf_counter() - t0)
+    with staged("pack"):
+        out[:arr.size] = arr
+        out[arr.size:] = 0
     return out
 
 
@@ -276,19 +274,19 @@ def pack257_rows(sym: np.ndarray, *, out: np.ndarray | None = None,
         raise ValueError(f"expected (n, S) block matrix, got {sym.shape}")
     if sym.min(initial=0) < 0 or sym.max(initial=0) > 256:
         raise ValueError("symbols out of GF(257) range")
-    t0 = perf_counter()
-    if out is None:
-        low = (sym & 0xFF).astype(np.uint8)   # 256 -> 0, others unchanged
-    else:
-        if out.shape != sym.shape or out.dtype != np.uint8:
-            raise ValueError(f"out must be uint8 {sym.shape}, got "
-                             f"{out.dtype} {out.shape}")
-        np.copyto(out, sym, casting="unsafe")
-        low = out
-    rows, cols = np.nonzero(sym == 256)
-    splits = np.searchsorted(rows, np.arange(1, sym.shape[0]))
-    his = np.split(cols.astype(np.int64), splits)
-    record_stage("pack", perf_counter() - t0)
+    if out is not None and (out.shape != sym.shape
+                            or out.dtype != np.uint8):
+        raise ValueError(f"out must be uint8 {sym.shape}, got "
+                         f"{out.dtype} {out.shape}")
+    with staged("pack"):
+        if out is None:
+            low = (sym & 0xFF).astype(np.uint8)  # 256 -> 0, others kept
+        else:
+            np.copyto(out, sym, casting="unsafe")
+            low = out
+        rows, cols = np.nonzero(sym == 256)
+        splits = np.searchsorted(rows, np.arange(1, sym.shape[0]))
+        his = np.split(cols.astype(np.int64), splits)
     return low, his
 
 
@@ -296,18 +294,18 @@ def unpack257_rows(low: np.ndarray, his: Sequence[np.ndarray], *,
                    out: np.ndarray | None = None) -> np.ndarray:
     """Inverse of pack257_rows.  ``out`` (int32, same shape) receives the
     expansion in place."""
-    t0 = perf_counter()
-    if out is None:
-        out = np.asarray(low).astype(np.int32)
-    else:
+    if out is not None:
         low = np.asarray(low)
         if out.shape != low.shape or out.dtype != np.int32:
             raise ValueError(f"out must be int32 {low.shape}, got "
                              f"{out.dtype} {out.shape}")
-        np.copyto(out, low)
-    for i, hi in enumerate(his):
-        out[i, hi] = 256
-    record_stage("pack", perf_counter() - t0)
+    with staged("pack"):
+        if out is None:
+            out = np.asarray(low).astype(np.int32)
+        else:
+            np.copyto(out, low)
+        for i, hi in enumerate(his):
+            out[i, hi] = 256
     return out
 
 

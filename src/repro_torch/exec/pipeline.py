@@ -33,7 +33,6 @@ from __future__ import annotations
 import threading
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
-from time import perf_counter
 from typing import Callable, Iterable, Optional, Sequence
 
 from . import staging
@@ -70,35 +69,55 @@ class Pipeline:
     # ------------------------------------------------------ stage accounting
     def reset_stage_stats(self) -> None:
         """Zero this pipeline's stage timers and rebase the process-wide
-        pack/pad clocks."""
+        clock's stages."""
         with self._stage_lock:
-            self._stage = {"t_stage_read": 0.0, "t_dispatch": 0.0,
-                           "t_consume": 0.0}
+            self._stage = dict.fromkeys(staging.PIPELINE_STAGES, 0.0)
             self._stage_base = staging.stage_times()
 
-    def _acct(self, name: str, dt: float) -> None:
+    def _timed(self, stage: str, fn: Callable, *args):
+        """``fn(*args)`` timed as stage ``stage`` on the process clock
+        and in this pipeline's sum ``t_<stage>``."""
+        with staging.staged(stage) as span:
+            out = fn(*args)
         with self._stage_lock:
-            self._stage[name] += dt
+            self._stage["t_" + stage] += span.seconds
+        return out
 
     def stage_stats(self) -> dict:
-        """Cumulative wall seconds per pipeline stage since the last
-        :meth:`reset_stage_stats`.
+        """Cumulative wall seconds per stage since the last
+        :meth:`reset_stage_stats`; every key of
+        `repro_torch.exec.staging.STAGE_NAMES`, 0.0 where nothing ran.
 
-        ``t_stage_read`` / ``t_dispatch`` / ``t_consume`` are timed
-        around this pipeline's read/compute/consume callbacks (read time
-        is pool-thread time, so at depth >= 2 it largely overlaps the
-        other two).  ``t_pack`` (flatten / pack257 staging writes) and
-        ``t_pad`` (bucket padding; always 0 here, where the kernels mask
-        the ragged edge instead) are deltas of the process-wide stage
-        clock in `repro_torch.exec.staging` — the staging work those
-        callbacks triggered, wherever it ran.
+        This pipeline's own stages, timed around its callbacks:
+
+        * ``t_stage_read``: the read callbacks (pool-thread time at depth
+          >= 2, where it overlaps the rest);
+        * ``t_read_wait``: the calling thread blocked on a read's result
+          (at depth 1 the read itself, which runs inline);
+        * ``t_dispatch`` / ``t_consume``: the compute / consume
+          callbacks, on the calling thread;
+        * ``t_barrier``: each ``map``'s closing barrier, the calling
+          thread waiting for the installs its consumes submitted.
+
+        Deltas of the process-wide stage clock, wherever they ran:
+        ``t_pack`` (flatten / pack257 staging writes), ``t_h2d``
+        (host operands staged onto the device), the store's ``t_chunk``
+        (a put's payload into int32 blocks), ``t_commit`` (a put's
+        commit), ``t_crc`` (share CRCs at put and of verified helper
+        reads; summed thread-seconds) and the repair scheduler's
+        ``t_select`` (queue walk and newcomer provisioning).
+
+        On a put, ``t_chunk + t_read_wait + t_dispatch + t_consume +
+        t_barrier + t_commit`` accounts for the calling thread's time;
+        on a drain tick, ``t_select + t_read_wait + t_dispatch +
+        t_consume + t_barrier``.
         """
         g = staging.stage_times()
         with self._stage_lock:
             out = dict(self._stage)
             base = self._stage_base
-        out["t_pack"] = g.get("pack", 0.0) - base.get("pack", 0.0)
-        out["t_pad"] = g.get("pad", 0.0) - base.get("pad", 0.0)
+        for key in staging.CLOCK_STAGES:
+            out[key] = g.get(key[2:], 0.0) - base.get(key[2:], 0.0)
         return out
 
     # ------------------------------------------------------------ lifecycle
@@ -185,10 +204,7 @@ class Pipeline:
         timed_read = None
         if read is not None:
             def timed_read(it):
-                t0 = perf_counter()
-                data = read(it)
-                self._acct("t_stage_read", perf_counter() - t0)
-                return data
+                return self._timed("stage_read", read, it)
 
         # depth 1 is the true serial baseline: no prefetch, reads run
         # inline — stage overlap exists only at depth >= 2
@@ -198,40 +214,32 @@ class Pipeline:
             for j in range(min(ahead, len(items))):
                 read_futs[j] = self._pool().submit(timed_read, items[j])
 
-        def _consume(it0, out0):
-            t0 = perf_counter()
-            consume(it0, out0)
-            self._acct("t_consume", perf_counter() - t0)
-
         pending: deque = deque()
         try:
             for i, item in enumerate(items):
                 if read is not None:
                     if i in read_futs:
-                        data = read_futs.pop(i).result()
+                        data = self._timed("read_wait",
+                                           read_futs.pop(i).result)
                     else:
-                        data = timed_read(items[i])
+                        data = self._timed("read_wait", timed_read,
+                                           items[i])
                     nxt = i + ahead
                     if ahead and nxt < len(items):
                         read_futs[nxt] = self._pool().submit(
                             timed_read, items[nxt])
-                    t0 = perf_counter()
-                    out = compute(item, data)
+                    out = self._timed("dispatch", compute, item, data)
                 else:
-                    t0 = perf_counter()
-                    out = compute(item)
-                self._acct("t_dispatch", perf_counter() - t0)
+                    out = self._timed("dispatch", compute, item)
                 pending.append((item, out))
                 while len(pending) >= self.depth:
-                    it0, out0 = pending.popleft()
-                    _consume(it0, out0)
+                    self._timed("consume", consume, *pending.popleft())
             while pending:
-                it0, out0 = pending.popleft()
-                _consume(it0, out0)
+                self._timed("consume", consume, *pending.popleft())
         finally:
             for f in read_futs.values():     # error path: drain prefetches
                 f.cancel()
-        self.barrier()
+        self._timed("barrier", self.barrier)
 
 
 __all__ = ["Pipeline", "DEFAULT_DEPTH"]

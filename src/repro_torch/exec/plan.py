@@ -49,7 +49,6 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from time import perf_counter
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -59,7 +58,7 @@ from repro_torch.device import as_int32, canonical_device, resolve_device
 from repro_torch.sharding.mesh import (StreamMesh, as_stream_mesh,
                                        mesh_device, shard_body, window_to)
 
-from .staging import StagingPool, record_stage
+from .staging import StagingPool, staged
 
 # Ladder defaults, identical to the reference: buckets 4096, 8192, ...
 BUCKET_MIN = 1 << 12
@@ -413,18 +412,16 @@ class PlanCache:
             arr[(slice(None),) * dim + (slice(a, b),)]
         if dev.type != "cuda":
             return as_int32(span, self.p, dev)
-        t0 = perf_counter()
-        if span is arr and arr.dtype == np.int32 \
-                and arr.flags.c_contiguous and self.staging.holds(arr):
-            self.staged_in_place += 1
-            src = arr
-        else:
-            src = self.staging.acquire(span.shape, np.int32)
-            np.copyto(src, span, casting="unsafe")
-            bufs.append(src)
-        out = torch.from_numpy(src).to(dev, non_blocking=True)
-        record_stage("h2d", perf_counter() - t0)
-        return out
+        with staged("h2d"):
+            if span is arr and arr.dtype == np.int32 \
+                    and arr.flags.c_contiguous and self.staging.holds(arr):
+                self.staged_in_place += 1
+                src = arr
+            else:
+                src = self.staging.acquire(span.shape, np.int32)
+                np.copyto(src, span, casting="unsafe")
+                bufs.append(src)
+            return torch.from_numpy(src).to(dev, non_blocking=True)
 
     def _launch(self, op: str, fn: Callable, operands: tuple, out_shape: tuple,
                 key: tuple, tag: Optional[str] = None,

@@ -15,9 +15,22 @@ completed — an event recorded after the copy has been waited on, or the
 blocking ``PlanResult.host()``.  Dropping a buffer without releasing it is
 safe: it is retired, never reissued.
 
-The module also owns the process-wide stage clock: ``record_stage`` /
-``stage_times`` accumulate wall time per named stage ("pack" for the
-byte/symbol packing, "h2d" for staging a host operand onto the device).
+The module also owns the process-wide stage clock.  ``staged(name)`` is
+the one way the program times a stage: it adds the block's wall seconds
+and a call to stage ``name`` (``stage_times`` / ``stage_calls``).  The
+stages: "pack" (byte/symbol packing), "h2d" (staging a host operand onto
+the device), "land" (the checkpointer's landing copies), the store's
+"chunk", "commit", "crc" and the scheduler's "select", and each
+pipeline's "stage_read", "read_wait", "dispatch", "consume" and
+"barrier" (`repro_torch.exec.pipeline`).  Per-share work inside a loop
+runs under ``tallied(name)``, which sums the loop's ``staged(name)``
+blocks on that thread and records them once, as one call.
+
+``annotate(True)`` also opens every stage as a
+``torch.profiler.record_function`` range named ``repro_torch.<stage>``,
+so a trace taken under ``torch.profiler`` shows the stages on the host
+timeline, on the clock its kernels and copies are aligned to.  It is
+off by default: a range also leaves a mirror on the device timeline.
 """
 from __future__ import annotations
 
@@ -34,14 +47,23 @@ import torch
 # matches the plan cache's BUCKET_MIN.
 POOL_BUCKET_MIN = 1 << 12
 
-# Stage names of the reference's pipeline accounting, kept for parity.
-STAGE_NAMES = ("t_stage_read", "t_pack", "t_pad", "t_dispatch",
-               "t_consume")
+# Keys of ``Pipeline.stage_stats()``: a pipeline's own stages, summed per
+# pipeline, then the clock's stages as deltas since the pipeline's reset.
+PIPELINE_STAGES = ("t_stage_read", "t_read_wait", "t_dispatch",
+                   "t_consume", "t_barrier")
+CLOCK_STAGES = ("t_pack", "t_h2d", "t_chunk", "t_commit", "t_crc",
+                "t_select")
+STAGE_NAMES = PIPELINE_STAGES + CLOCK_STAGES
+
+# Name prefix of a stage's profiler range when annotation is on.
+RANGE_PREFIX = "repro_torch."
 
 # ------------------------------------------------------------ stage clock
 _TLOCK = threading.Lock()
 _TIMES: dict = defaultdict(float)
 _CALLS: dict = defaultdict(int)
+_ANNOTATE = False
+_LOCAL = threading.local()          # per thread: the open tallies
 
 
 def record_stage(name: str, seconds: float) -> None:
@@ -68,14 +90,70 @@ def reset_stage_times() -> None:
         _CALLS.clear()
 
 
+def annotate(on: bool) -> None:
+    """Process-wide switch: with it on, every ``staged`` block is also a
+    ``torch.profiler.record_function`` range ``repro_torch.<stage>``."""
+    global _ANNOTATE
+    _ANNOTATE = bool(on)
+
+
+class Span:
+    """What one ``staged`` block took: ``seconds``, set when it ends."""
+    __slots__ = ("seconds",)
+
+    def __init__(self):
+        self.seconds = 0.0
+
+
+def _tallies() -> dict:
+    tallies = getattr(_LOCAL, "tallies", None)
+    if tallies is None:
+        tallies = _LOCAL.tallies = {}
+    return tallies
+
+
 @contextmanager
 def staged(name: str):
-    """Time a block under stage ``name``."""
+    """Time a block under stage ``name``: its seconds and a call go to
+    the clock, or to this thread's open ``tallied(name)``.  Yields a
+    :class:`Span` that holds the block's seconds once it has ended."""
+    span = Span()
+    rng = None
+    if _ANNOTATE:
+        rng = torch.profiler.record_function(RANGE_PREFIX + name)
+        rng.__enter__()
     t0 = perf_counter()
+    try:
+        yield span
+    finally:
+        span.seconds = perf_counter() - t0
+        if rng is not None:
+            rng.__exit__(None, None, None)
+        acc = _tallies().get(name)
+        if acc is None:
+            record_stage(name, span.seconds)
+        else:
+            acc[0] += span.seconds
+            acc[1] += 1
+
+
+@contextmanager
+def tallied(name: str):
+    """Sum the ``staged(name)`` blocks this thread runs inside the block
+    and record them on the clock once, as one call, when it ends: a
+    loop's per-share work costs one clock record.  A tally of a name
+    already open on this thread joins it."""
+    tallies = _tallies()
+    if name in tallies:
+        yield
+        return
+    acc = tallies[name] = [0.0, 0]
     try:
         yield
     finally:
-        record_stage(name, perf_counter() - t0)
+        del tallies[name]
+        if acc[1]:
+            record_stage(name, acc[0])
 
 
 # ------------------------------------------------------------------- pool
@@ -198,5 +276,6 @@ class StagingPool:
 
 
 __all__ = ["StagingPool", "StagingStats", "POOL_BUCKET_MIN", "STAGE_NAMES",
+           "PIPELINE_STAGES", "CLOCK_STAGES", "RANGE_PREFIX", "Span",
            "record_stage", "stage_times", "stage_calls",
-           "reset_stage_times", "staged"]
+           "reset_stage_times", "staged", "tallied", "annotate"]

@@ -51,6 +51,7 @@ from repro_torch.core.msr import DoubleCirculantMSR
 from repro_torch.cluster.events import Event
 from repro_torch.cluster.metrics import LinkModel, MetricsLog
 from repro_torch.exec.pipeline import Pipeline
+from repro_torch.exec.staging import staged, tallied
 from repro_torch.io.faults import FaultInjector
 from repro_torch.io.retry import RetryPolicy, RetryStats
 
@@ -482,13 +483,17 @@ class CodedObjectStore:
         mismatch is re-read (transient read-path flip); persistent
         mismatch raises :class:`ShareIntegrityError` (storage rot —
         decode around it, don't decode FROM it).  Objects without a
-        ledger pass through unchecked."""
+        ledger pass through unchecked.  The CRC is stage "crc"; callers
+        that read many shares run under ``tallied("crc")``, one clock
+        record a call or window."""
         stat = self._stats.get(key)
         for _ in range(attempts):
             share = self.read_share(phys, key, t)
-            if stat is None or stat.share_crcs is None \
-                    or self._share_crc_of(stat, share) == \
-                    stat.share_crcs[t][share[0] - 1]:
+            if stat is None or stat.share_crcs is None:
+                return share
+            with staged("crc"):
+                crc = self._share_crc_of(stat, share)
+            if crc == stat.share_crcs[t][share[0] - 1]:
                 return share
         raise ShareIntegrityError(phys, key, t, attempts)
 
@@ -571,7 +576,8 @@ class CodedObjectStore:
         cc = code_class if code_class is not None else self.default_class
         if not self._is_default(cc):
             return self._put_generic(key, payload, dtype, shape, meta, cc)
-        blocks, smap = self.stripes.chunk(payload)
+        with staged("chunk"):
+            blocks, smap = self.stripes.chunk(payload)
         base = self._next_stripe
         self._next_stripe += smap.n_stripes
         tile = self.put_tile_stripes
@@ -599,7 +605,7 @@ class CodedObjectStore:
             tt, view = flat
             return tt, self.code.encode_planned(view), view
 
-        staged: list[tuple[int, int, list]] = []    # (phys, t, share)
+        placed: list[tuple[int, int, list]] = []    # (phys, t, share)
         # put-time integrity ledger: share_crcs[t][j] covers EVERY share,
         # including lost-at-birth ones a repair rebuilds later bit-exactly
         crcs: list[list[int]] = [[0] * self.n for _ in range(smap.n_stripes)]
@@ -610,6 +616,7 @@ class CodedObjectStore:
             if planner is not None:
                 planner.staging.release(view)
 
+            @tallied("crc")
             def install() -> None:
                 # CRC + share copies off the critical thread: the pool
                 # installs window t while window t+1's encode dispatches
@@ -618,10 +625,11 @@ class CodedObjectStore:
                     pl = self.stripes.placement(base + t)
                     for j, phys in enumerate(pl):
                         a_blk, r_blk = blocks[t, j], red[t - t0, j]
-                        crcs[t][j] = share_crc(a_blk, r_blk)
+                        with staged("crc"):
+                            crcs[t][j] = share_crc(a_blk, r_blk)
                         if self.is_up(phys):
                             self._guard("write", phys)
-                            staged.append((phys, t, [j + 1, a_blk, r_blk]))
+                            placed.append((phys, t, [j + 1, a_blk, r_blk]))
 
             self._install(install)
 
@@ -631,19 +639,22 @@ class CodedObjectStore:
         # generation (overwrite case), install the staged shares, and
         # only THEN publish the key — a crash or give-up before this
         # line leaves no observable trace of the new put.
-        if key in self._stats:
-            self.delete(key)
-        for phys, t, share in staged:
-            if self.is_up(phys):        # node may have died mid-put
-                self._shares[phys - 1][(key, t)] = share
-        stat = ObjectStat(key=key, size_bytes=smap.orig_bytes,
-                          n_stripes=smap.n_stripes, stripe_symbols=self.S,
-                          dtype=dtype, shape=shape, meta=dict(meta or {}),
-                          share_crcs=crcs, code_class=self.default_class)
-        stat.meta["_base_stripe"] = base
-        self._stats[key] = stat
-        self.metrics.record_put(smap.n_stripes * self.n * self.S,
-                                2 * smap.n_stripes * self.n * self.S)
+        with staged("commit"):
+            if key in self._stats:
+                self.delete(key)
+            for phys, t, share in placed:
+                if self.is_up(phys):    # node may have died mid-put
+                    self._shares[phys - 1][(key, t)] = share
+            stat = ObjectStat(key=key, size_bytes=smap.orig_bytes,
+                              n_stripes=smap.n_stripes,
+                              stripe_symbols=self.S, dtype=dtype,
+                              shape=shape, meta=dict(meta or {}),
+                              share_crcs=crcs,
+                              code_class=self.default_class)
+            stat.meta["_base_stripe"] = base
+            self._stats[key] = stat
+            self.metrics.record_put(smap.n_stripes * self.n * self.S,
+                                    2 * smap.n_stripes * self.n * self.S)
         return stat
 
     def _put_generic(self, key: str, payload: bytes, dtype, shape,
@@ -655,7 +666,8 @@ class CodedObjectStore:
         codec = self._codec_for(cc)
         code = codec.code
         n, q, d_blocks = codec.n, code.share_blocks, code.data_blocks
-        blocks, smap = codec.chunk(payload)
+        with staged("chunk"):
+            blocks, smap = codec.chunk(payload)
         base = self._next_stripe
         self._next_stripe += smap.n_stripes
         tile = self.put_tile_stripes
@@ -675,7 +687,7 @@ class CodedObjectStore:
             tt, view = flat
             return tt, code.encode_derived_planned(view), view
 
-        staged: list[tuple[int, int, list]] = []    # (phys, t, share)
+        placed: list[tuple[int, int, list]] = []    # (phys, t, share)
         crcs: list[list[int]] = [[0] * n for _ in range(smap.n_stripes)]
 
         def place_window(t0: int, res) -> None:
@@ -684,6 +696,7 @@ class CodedObjectStore:
             if planner is not None:
                 planner.staging.release(view)
 
+            @tallied("crc")
             def install() -> None:
                 derived = codec.unflatten_rows(raw[:, :tt * self.S],
                                                code.derived_rows, tt)
@@ -692,10 +705,11 @@ class CodedObjectStore:
                     for j, phys in enumerate(pl):
                         blks = code.stripe_share_blocks(
                             blocks[t], derived[t - t0], j + 1)
-                        crcs[t][j] = code.share_crc_blocks(blks)
+                        with staged("crc"):
+                            crcs[t][j] = code.share_crc_blocks(blks)
                         if self.is_up(phys):
                             self._guard("write", phys)
-                            staged.append((phys, t, [j + 1] + [
+                            placed.append((phys, t, [j + 1] + [
                                 np.asarray(b, np.int32) for b in blks]))
 
             self._install(install)
@@ -704,19 +718,21 @@ class CodedObjectStore:
                           encode_window, place_window, read=flatten_window)
         # commit point — identical semantics to the default path: retire
         # the old generation, install, publish the stat entry LAST
-        if key in self._stats:
-            self.delete(key)
-        for phys, t, share in staged:
-            if self.is_up(phys):
-                self._shares[phys - 1][(key, t)] = share
-        stat = ObjectStat(key=key, size_bytes=smap.orig_bytes,
-                          n_stripes=smap.n_stripes, stripe_symbols=self.S,
-                          dtype=dtype, shape=shape, meta=dict(meta or {}),
-                          share_crcs=crcs, code_class=cc)
-        stat.meta["_base_stripe"] = base
-        self._stats[key] = stat
-        self.metrics.record_put(smap.n_stripes * d_blocks * self.S,
-                                smap.n_stripes * n * q * self.S)
+        with staged("commit"):
+            if key in self._stats:
+                self.delete(key)
+            for phys, t, share in placed:
+                if self.is_up(phys):
+                    self._shares[phys - 1][(key, t)] = share
+            stat = ObjectStat(key=key, size_bytes=smap.orig_bytes,
+                              n_stripes=smap.n_stripes,
+                              stripe_symbols=self.S, dtype=dtype,
+                              shape=shape, meta=dict(meta or {}),
+                              share_crcs=crcs, code_class=cc)
+            stat.meta["_base_stripe"] = base
+            self._stats[key] = stat
+            self.metrics.record_put(smap.n_stripes * d_blocks * self.S,
+                                    smap.n_stripes * n * q * self.S)
         return stat
 
     # -------------------------------------------------------------- get path
@@ -786,6 +802,7 @@ class CodedObjectStore:
         acct = {"bytes": 0, "latency": 0.0}
         planner = getattr(self.code, "planner", None)
 
+        @tallied("crc")
         def gather(item):
             (helpers, _missing), ts = item
             # pooled gather staging (DESIGN.md §16.1): the per-stripe
@@ -878,6 +895,7 @@ class CodedObjectStore:
         acct = {"bytes": 0, "latency": 0.0}
         planner = getattr(code, "planner", None)
 
+        @tallied("crc")
         def gather(item):
             (helpers, _missing), ts = item
             buf = self._stage_into(planner, k * q, len(ts) * self.S)
@@ -919,6 +937,7 @@ class CodedObjectStore:
                          degraded_stripes=sum(len(v) for v in groups.values()),
                          latency_s=latency)
 
+    @tallied("crc")
     def _downloads_generic(self, key: str, t: int, helpers: Sequence[int],
                            codec: StripeCodec) -> np.ndarray:
         """(k*q, S) stacked helper blocks in the family's
@@ -971,6 +990,7 @@ class CodedObjectStore:
         physically present."""
         return self._present_code_nodes(key, t, self.placement_of(key, t))
 
+    @tallied("crc")
     def _downloads(self, key: str, t: int,
                    helpers: Sequence[int]) -> np.ndarray:
         """(2k, S) stacked [data; red] blocks of the helper code nodes —
@@ -1154,6 +1174,7 @@ class CodedObjectStore:
         tile = self.repair_tile_tasks
         windows = [tasks[i: i + tile] for i in range(0, len(tasks), tile)]
 
+        @tallied("crc")
         def gather(window):
             r_prevs, helper_data, placements = [], [], []
             for key, t, node in window:
@@ -1233,6 +1254,7 @@ class CodedObjectStore:
         windows = [tasks[i: i + tile] for i in range(0, len(tasks), tile)]
         moved = [0]
 
+        @tallied("crc")
         def gather(window):
             plans, pairs, placements = [], [], []
             for key, t, node in window:
@@ -1274,6 +1296,7 @@ class CodedObjectStore:
         self.pipeline.map(windows, regen, land, read=gather)
         return moved[0], len(windows)
 
+    @tallied("crc")
     def _repair_stripe_regen(self, key: str, t: int, node: int) -> int:
         """Bandwidth-optimal single-share regeneration through the
         object's family plan (the generic counterpart of the coalesced

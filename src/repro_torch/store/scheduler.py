@@ -42,6 +42,7 @@ from typing import Optional
 
 from repro_torch.cluster.events import Event
 from repro_torch.cluster.metrics import LinkModel
+from repro_torch.exec.staging import staged
 
 from .object_store import CodedObjectStore, ShareIntegrityError
 
@@ -242,64 +243,26 @@ class RepairScheduler:
         budget = self.budget_symbols_per_tick() \
             if budget_symbols is None else max(1, int(budget_symbols))
         store = self.store
-        s = store.S
         report = DrainReport()
         embedded: list[tuple[str, int, int]] = []   # coalesced single-loss
         full: list[tuple[str, int, tuple[int, ...]]] = []
         selected: set[tuple[str, int]] = set()
         spent = 0
-        while self._heap:
-            rem, _, key, t = self._heap[0]
-            if (key, t) not in self._queued or (key, t) in selected:
-                heapq.heappop(self._heap)           # stale dup entry
-                continue
-            try:
-                lost = store.lost_code_nodes(key, t)
-            except KeyError:                        # object deleted
-                heapq.heappop(self._heap)
-                self._queued.discard((key, t))
-                continue
-            if not lost:
-                heapq.heappop(self._heap)
-                self._queued.discard((key, t))
-                continue
-            n_code, k_code, d_code = self._code_params(key)
-            if len(lost) > n_code - k_code:         # data loss: fewer than
-                heapq.heappop(self._heap)           # k shares left — only a
-                self._queued.discard((key, t))      # re-put can help, so it
-                report.unrecoverable += 1           # must not wedge the queue
-                continue
-            now_rem = (n_code - k_code) - len(lost)
-            if now_rem != rem:                      # priority drifted
-                heapq.heappop(self._heap)
-                self._push(key, t, len(lost))       # requeue at current prio
-                continue
-            # bandwidth-optimal regeneration (d * S, eq. (7)) when the
-            # object's family has a plan from the present shares; full
-            # decode (B = k * q * S) otherwise — per-key code geometry
-            regen_ok = (len(lost) == 1
-                        and store.embedded_helpers_present(key, t, lost[0]))
-            cost = d_code * s if regen_ok \
-                else k_code * (d_code - k_code + 1) * s
-            if spent + cost > budget and spent > 0:
-                break                               # budget exhausted
-            heapq.heappop(self._heap)
-            selected.add((key, t))
-            spent += cost
-            if regen_ok:
-                embedded.append((key, t, lost[0]))
-            else:
-                full.append((key, t, lost))
-        # provision newcomers for every slot we are about to write — their
-        # `up` events may enqueue OTHER still-lost stripes on the slot
-        # (lost-at-birth re-protection); the selected set stays in
-        # _queued until its repairs land so those events cannot double-
-        # enqueue the work in flight.  The finally block keeps queue state
-        # and byte accounting consistent with whatever repairs actually
-        # landed, even if one raises mid-tick.
+        # stage "select": pop the tick's tasks, then provision newcomers
+        # for every slot we are about to write — their `up` events may
+        # enqueue OTHER still-lost stripes on the slot (lost-at-birth
+        # re-protection); the selected set stays in _queued until its
+        # repairs land so those events cannot double-enqueue the work in
+        # flight.  The finally block keeps queue state and byte
+        # accounting consistent with whatever repairs actually landed,
+        # even if one raises mid-tick (or the walk does: what it popped
+        # is in `selected`).
         completed: set[tuple[str, int]] = set()
         try:
-            self._replace_target_nodes(embedded, full)
+            with staged("select"):
+                spent = self._select(budget, report, embedded, full,
+                                     selected)
+                self._replace_target_nodes(embedded, full)
             if embedded:
                 # a rotten helper (persistent CRC failure) must not be
                 # decoded FROM: skip the batch, requeue via the finally
@@ -368,6 +331,59 @@ class RepairScheduler:
         throttle_s = moved / budget * self.tick_s
         report.drain_time_s = max(raw_s, throttle_s)
         return report
+
+    def _select(self, budget: int, report: DrainReport,
+                embedded: list, full: list, selected: set) -> int:
+        """Pop this tick's tasks in priority order until the symbol
+        budget is spent: single-loss stripes with their helpers present
+        into ``embedded``, the rest into ``full``, each into ``selected``
+        as it leaves the heap.  Returns the symbols they cost."""
+        store = self.store
+        s = store.S
+        spent = 0
+        while self._heap:
+            rem, _, key, t = self._heap[0]
+            if (key, t) not in self._queued or (key, t) in selected:
+                heapq.heappop(self._heap)           # stale dup entry
+                continue
+            try:
+                lost = store.lost_code_nodes(key, t)
+            except KeyError:                        # object deleted
+                heapq.heappop(self._heap)
+                self._queued.discard((key, t))
+                continue
+            if not lost:
+                heapq.heappop(self._heap)
+                self._queued.discard((key, t))
+                continue
+            n_code, k_code, d_code = self._code_params(key)
+            if len(lost) > n_code - k_code:         # data loss: fewer than
+                heapq.heappop(self._heap)           # k shares left — only a
+                self._queued.discard((key, t))      # re-put can help, so it
+                report.unrecoverable += 1           # must not wedge the queue
+                continue
+            now_rem = (n_code - k_code) - len(lost)
+            if now_rem != rem:                      # priority drifted
+                heapq.heappop(self._heap)
+                self._push(key, t, len(lost))       # requeue at current prio
+                continue
+            # bandwidth-optimal regeneration (d * S, eq. (7)) when the
+            # object's family has a plan from the present shares; full
+            # decode (B = k * q * S) otherwise — per-key code geometry
+            regen_ok = (len(lost) == 1
+                        and store.embedded_helpers_present(key, t, lost[0]))
+            cost = d_code * s if regen_ok \
+                else k_code * (d_code - k_code + 1) * s
+            if spent + cost > budget and spent > 0:
+                break                               # budget exhausted
+            heapq.heappop(self._heap)
+            selected.add((key, t))
+            spent += cost
+            if regen_ok:
+                embedded.append((key, t, lost[0]))
+            else:
+                full.append((key, t, lost))
+        return spent
 
     def _replace_target_nodes(self, embedded, full) -> None:
         targets: set[int] = set()

@@ -41,13 +41,11 @@ def _flatten_into(blocks: np.ndarray, axes: tuple, out_shape: tuple,
     if out.shape != out_shape or out.dtype != np.int32:
         raise ValueError(f"staging out must be int32 {out_shape}, got "
                          f"{out.dtype} {out.shape}")
-    from time import perf_counter
-    t0 = perf_counter()
     # 3-D view of the destination so the strided transpose writes land
     # directly in the pooled buffer (one pass, no intermediate copy)
-    np.copyto(out.reshape(tuple(blocks.shape[a] for a in axes)),
-              np.transpose(blocks, axes))
-    gf.record_stage("pack", perf_counter() - t0)
+    with gf.staged("pack"):
+        np.copyto(out.reshape(tuple(blocks.shape[a] for a in axes)),
+                  np.transpose(blocks, axes))
     return out
 
 

@@ -127,9 +127,13 @@ def test_stage_stats_rebase_and_keys():
     pipe.map(range(3), lambda i, d: d, lambda i, r: None,
              read=lambda i: i)
     st = pipe.stage_stats()
-    assert set(st) == set(tstaging.STAGE_NAMES) == \
-        set(RPipeline().stage_stats())
-    assert st["t_pack"] == pytest.approx(0.25) and st["t_pad"] == 0.0
+    # the documented key set: the reference's keys but its dead t_pad
+    documented = {"t_stage_read", "t_read_wait", "t_dispatch", "t_consume",
+                  "t_barrier", "t_pack", "t_h2d", "t_chunk", "t_commit",
+                  "t_crc", "t_select"}
+    assert set(st) == set(tstaging.STAGE_NAMES) == documented
+    assert set(RPipeline().stage_stats()) - {"t_pad"} <= documented
+    assert st["t_pack"] == pytest.approx(0.25) and st["t_chunk"] == 0.0
     assert st["t_dispatch"] >= 0 and st["t_consume"] >= 0
     pipe.close()
 
