@@ -32,8 +32,8 @@ from __future__ import annotations
 
 import threading
 from collections import deque
-from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Callable, Iterable, Optional, Sequence
+from concurrent.futures import Future, ThreadPoolExecutor, wait
+from typing import Any, Callable, Iterable, Optional, Sequence
 
 from . import staging
 
@@ -163,6 +163,53 @@ class Pipeline:
         for f in futs:
             f.result()
 
+    def fan_out(self, n: int, task: Callable[[int], Any], *,
+                helpers: int = 0) -> list:
+        """``[task(i) for i in range(n)]``, run by the calling thread and
+        up to ``helpers`` pool threads that pull indices from one shared
+        cursor (``helpers=0`` is the serial loop).
+
+        The calling thread always takes part, so the call completes even
+        if no pool thread ever starts: it cannot deadlock at any pool
+        size, from a pool thread too (a read prefetched while another
+        fans out).  A pool thread that starts once the cursor has run
+        out returns at once; nothing waits for it.  Once a task raises,
+        no further index is handed out, and when the tasks running have
+        ended the error of the lowest failing index is raised: the one a
+        serial loop raises, since every lower index was handed out
+        earlier and has ended.
+        """
+        results: list = [None] * n
+        errors: dict = {}
+        cond = threading.Condition()
+        cursor, running = [0], [0]
+
+        def participate() -> None:
+            while True:
+                with cond:
+                    if cursor[0] >= n or errors:
+                        return
+                    i = cursor[0]
+                    cursor[0] += 1
+                    running[0] += 1
+                try:
+                    results[i] = task(i)
+                except BaseException as e:   # raised by the caller
+                    with cond:
+                        errors[i] = e
+                with cond:
+                    running[0] -= 1
+                    cond.notify_all()
+
+        for _ in range(max(0, min(int(helpers), n - 1))):
+            self._pool().submit(participate)
+        participate()
+        with cond:
+            cond.wait_for(lambda: running[0] == 0)
+        if errors:
+            raise errors[min(errors)]
+        return results
+
     # -------------------------------------------------------------- stages
     def stream_tiles(self, s_total: int, tile: int,
                      compute: Callable, consume: Callable) -> None:
@@ -237,8 +284,9 @@ class Pipeline:
             while pending:
                 self._timed("consume", consume, *pending.popleft())
         finally:
-            for f in read_futs.values():     # error path: drain prefetches
-                f.cancel()
+            # error path: drop the prefetches, and wait for those already
+            # running, so that no read outlives the call
+            wait([f for f in read_futs.values() if not f.cancel()])
         self._timed("barrier", self.barrier)
 
 

@@ -20,11 +20,13 @@ the one way the program times a stage: it adds the block's wall seconds
 and a call to stage ``name`` (``stage_times`` / ``stage_calls``).  The
 stages: "pack" (byte/symbol packing), "h2d" (staging a host operand onto
 the device), "land" (the checkpointer's landing copies), the store's
-"chunk", "commit", "crc" and the scheduler's "select", and each
+"chunk", "commit", "crc", "gather" and the scheduler's "select", and each
 pipeline's "stage_read", "read_wait", "dispatch", "consume" and
 "barrier" (`repro_torch.exec.pipeline`).  Per-share work inside a loop
 runs under ``tallied(name)``, which sums the loop's ``staged(name)``
-blocks on that thread and records them once, as one call.
+blocks on that thread and records them once, as one call; work shared
+out over threads hands each task's sum back (``tallied(name,
+record=False)``) and one thread records the total.
 
 ``annotate(True)`` also opens every stage as a
 ``torch.profiler.record_function`` range named ``repro_torch.<stage>``,
@@ -52,7 +54,7 @@ POOL_BUCKET_MIN = 1 << 12
 PIPELINE_STAGES = ("t_stage_read", "t_read_wait", "t_dispatch",
                    "t_consume", "t_barrier")
 CLOCK_STAGES = ("t_pack", "t_h2d", "t_chunk", "t_commit", "t_crc",
-                "t_select")
+                "t_select", "t_gather")
 STAGE_NAMES = PIPELINE_STAGES + CLOCK_STAGES
 
 # Name prefix of a stage's profiler range when annotation is on.
@@ -138,21 +140,28 @@ def staged(name: str):
 
 
 @contextmanager
-def tallied(name: str):
+def tallied(name: str, record: bool = True):
     """Sum the ``staged(name)`` blocks this thread runs inside the block
-    and record them on the clock once, as one call, when it ends: a
-    loop's per-share work costs one clock record.  A tally of a name
-    already open on this thread joins it."""
+    into the yielded ``[seconds, calls]`` and record them on the clock
+    once, as one call, when it ends: a loop's per-share work costs one
+    clock record.  A tally of a name already open on this thread joins
+    it.  ``record=False`` hands the block's own sum back and records
+    nothing (an open tally is set aside meanwhile): the caller records
+    the total of work shared out over threads."""
     tallies = _tallies()
-    if name in tallies:
-        yield
+    outer = tallies.get(name)
+    if outer is not None and record:
+        yield outer
         return
     acc = tallies[name] = [0.0, 0]
     try:
-        yield
+        yield acc
     finally:
-        del tallies[name]
-        if acc[1]:
+        if outer is None:
+            del tallies[name]
+        else:
+            tallies[name] = outer
+        if record and acc[1]:
             record_stage(name, acc[0])
 
 

@@ -51,7 +51,7 @@ from repro_torch.core.msr import DoubleCirculantMSR
 from repro_torch.cluster.events import Event
 from repro_torch.cluster.metrics import LinkModel, MetricsLog
 from repro_torch.exec.pipeline import Pipeline
-from repro_torch.exec.staging import staged, tallied
+from repro_torch.exec.staging import record_stage, staged, tallied
 from repro_torch.io.faults import FaultInjector
 from repro_torch.io.retry import RetryPolicy, RetryStats
 
@@ -484,7 +484,8 @@ class CodedObjectStore:
         mismatch raises :class:`ShareIntegrityError` (storage rot —
         decode around it, don't decode FROM it).  Objects without a
         ledger pass through unchecked.  The CRC is stage "crc"; callers
-        that read many shares run under ``tallied("crc")``, one clock
+        that read many shares run under ``tallied("crc")``, on one thread
+        or summed over the threads of `Pipeline.fan_out`: one clock
         record a call or window."""
         stat = self._stats.get(key)
         for _ in range(attempts):
@@ -1149,6 +1150,14 @@ class CodedObjectStore:
         with batch stride 0.  The batch axis is bucketed in the plan
         key, so drains of different sizes share one plan.
 
+        A window's operands are two pooled staging buffers that its
+        gather fills in place and the planner DMAs as they lie: each
+        task's verified helper rows go straight to their rows, the tasks
+        shared out over the gathering thread and up to ``io_workers - 1``
+        pool threads (`Pipeline.fan_out`) at depth > 1 with no fault
+        injector, and taken one by one otherwise.  Every path returns the
+        buffers to the pool, an error's too.
+
         tasks: (key, stripe, lost_code_node) triples, each single-loss
         with a regeneration plan available (caller-checked).  The
         default class's repair matrix is node-invariant, so stripes that
@@ -1173,35 +1182,81 @@ class CodedObjectStore:
         tasks = legacy
         tile = self.repair_tile_tasks
         windows = [tasks[i: i + tile] for i in range(0, len(tasks), tile)]
+        k, s = self.k, self.S
+        planner = getattr(self.code, "planner", None)
+        # the gathering thread and up to io_workers - 1 pool threads fill
+        # a window's tasks; serial at depth 1 (the store's serial
+        # baseline) and under a fault injector (its seeded draws fire in
+        # the reference's order)
+        helpers = self.pipeline.io_workers - 1 \
+            if self.pipeline.depth > 1 and self.faults is None else 0
+        held: dict[int, list] = {}      # window -> operands not released
+        launched: dict[int, Any] = {}   # window -> its PlanResult
 
-        @tallied("crc")
-        def gather(window):
-            r_prevs, helper_data, placements = [], [], []
-            for key, t, node in window:
-                base = self.stat(key).meta["_base_stripe"]
-                pl = self.stripes.placement(base + t)
-                plan = self.code.repair_plan(node)
-                r_prevs.append(self._read_share_verified(
-                    pl[plan.prev_node - 1], key, t)[2])
-                helper_data.append(np.stack(
-                    [self._read_share_verified(pl[i - 1], key, t)[1]
-                     for i in plan.next_nodes]))
-                placements.append(pl)
-            return np.stack(r_prevs), np.stack(helper_data), placements
+        def operand(rows: int) -> np.ndarray:
+            buf = self._stage_into(planner, rows, s)
+            return np.empty((rows, s), np.int32) if buf is None else buf
 
-        def regen(window, gathered):
+        def release(w: int) -> None:
+            for buf in held.pop(w, ()):
+                if planner is not None:
+                    planner.staging.release(buf)
+
+        def gather(w: int):
+            # the window's operands, preallocated and filled in place, row
+            # by row: the planner DMAs them as they lie (DESIGN.md §16.1)
+            window = windows[w]
+            r_prevs, data = operand(len(window)), operand(len(window) * k)
+            held[w] = [r_prevs, data]
+            spent = []      # each task's crc and gather tallies
+
+            def fill(j: int):
+                key, t, node = window[j]
+                with tallied("crc", record=False) as crc, \
+                        tallied("gather", record=False) as took, \
+                        staged("gather"):
+                    spent.append((crc, took))
+                    base = self.stat(key).meta["_base_stripe"]
+                    pl = self.stripes.placement(base + t)
+                    plan = self.code.repair_plan(node)
+                    r_prevs[j] = self._read_share_verified(
+                        pl[plan.prev_node - 1], key, t)[2]
+                    for m, i in enumerate(plan.next_nodes):
+                        data[j * k + m] = self._read_share_verified(
+                            pl[i - 1], key, t)[1]
+                return pl
+
+            try:
+                placements = self.pipeline.fan_out(len(window), fill,
+                                                   helpers=helpers)
+            finally:
+                # summed over the threads, one record a window (an error's
+                # too: fan_out has waited for every task it started)
+                for name, accs in zip(("crc", "gather"), zip(*spent)):
+                    if any(calls for _, calls in accs):
+                        record_stage(name, sum(sec for sec, _ in accs))
+            return r_prevs, data.reshape(len(window), k, s), placements
+
+        def regen(w: int, gathered):
             r_prevs, helper_data, placements = gathered
-            res = self.code.repair.regenerate_batch_planned(
-                [node for _, _, node in window], r_prevs, helper_data)
+            try:
+                res = self.code.repair.regenerate_batch_planned(
+                    [node for _, _, node in windows[w]], r_prevs,
+                    helper_data)
+            except BaseException:
+                held.pop(w, None)   # a copy may still read them: retired
+                raise
+            launched[w] = res
             return res, placements
 
-        def land(window, out) -> None:
+        def land(w: int, out) -> None:
             res, placements = out
-            pairs = res.host()
+            pairs = res.host()              # its copies done: reusable
+            release(w)
 
             def install() -> None:
                 # share copies off the critical thread (DESIGN.md §16.3)
-                for (key, t, node), pl, pair in zip(window, placements,
+                for (key, t, node), pl, pair in zip(windows[w], placements,
                                                     pairs):
                     phys = pl[node - 1]
                     if not self.is_up(phys):
@@ -1213,7 +1268,20 @@ class CodedObjectStore:
 
             self._install(install)
 
-        self.pipeline.map(windows, regen, land, read=gather)
+        try:
+            self.pipeline.map(range(len(windows)), regen, land, read=gather)
+        finally:
+            # on an error (the map has waited for its running gathers):
+            # the operands of every window gathered but not landed go back
+            # to the pool, those of a launched window once its copies end
+            for w in list(held):
+                if w in launched:
+                    try:
+                        launched[w].host()
+                    except Exception:       # noqa: BLE001 (the map raised)
+                        held.pop(w)         # never released: retired
+                        continue
+                release(w)
         return len(tasks) * (self.k + 1) * self.S, len(windows)
 
     def _repair_generic(self, tasks: Sequence[tuple[str, int, int]],

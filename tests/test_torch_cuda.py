@@ -283,6 +283,43 @@ def test_store_batched_repairs_are_one_launch_per_window(cuda):
             got, (mats.astype(np.int64) @ blocks.astype(np.int64)) % P)
 
 
+def test_drain_tick_gathers_its_operands_in_place_in_parallel(cuda):
+    """A drain tick hands each window's two operands to the planner as
+    they lie, filled in pinned staging buffers: ``staged_in_place`` rises
+    by 2 a window and the pool hands out no buffer beyond those two, so
+    ``t_h2d`` is the DMA alone.  The gather's threads work side by side
+    while the tick waits: ``t_gather / t_read_wait`` above 1.5."""
+    from repro_torch.store import CodedObjectStore, RepairScheduler
+    s = 1 << 18
+    store = CodedObjectStore(CodeSpec.make(8, P), n_nodes=20,
+                             stripe_symbols=s, repair_tile_tasks=8,
+                             io_workers=4, pipeline_depth=2)
+    sched = RepairScheduler(store)
+    store.subscribe(sched.on_event)
+    payload = np.random.default_rng(0).integers(
+        0, 256, 16 * 16 * s, np.uint8).tobytes()     # 16 stripes
+    pc = store.code.planner
+    with store:
+        store.put("a", payload)
+        store.fail_node(3)
+        store.replace_node(3)
+        sched.drain_all()                   # warms the repair shapes
+        store.fail_node(7)
+        store.replace_node(7)
+        n0, st0 = pc.staged_in_place, pc.staging.stats()
+        store.pipeline.reset_stage_stats()
+        rep = sched.drain()
+        st, st1 = store.pipeline.stage_stats(), pc.staging.stats()
+        assert sched.pending() == 0 and store.get("a") == payload
+    windows = rep.batch_calls
+    assert windows == -(-rep.repaired_shares // 8) >= 2
+    assert pc.staged_in_place == n0 + 2 * windows
+    assert (st1.hits + st1.misses) - (st0.hits + st0.misses) == 2 * windows
+    assert st1.in_use == st0.in_use
+    assert st["t_h2d"] > 0.0
+    assert st["t_gather"] / st["t_read_wait"] > 1.5, st
+
+
 def test_caller_staged_pinned_buffer_is_not_copied_again(cuda):
     pc = tplan.PlanCache(dispatch.get("cuda"), P, bucket_min=32, device=cuda)
     b, pad = pc.stream_pad(1000)

@@ -21,7 +21,7 @@ C = [195, 101, 85, 228, 68, 59, 183, 160]
 S = 1 << 12
 DOCUMENTED = {"t_stage_read", "t_read_wait", "t_dispatch", "t_consume",
               "t_barrier", "t_pack", "t_h2d", "t_chunk", "t_commit",
-              "t_crc", "t_select"}
+              "t_crc", "t_select", "t_gather"}
 # the calling thread's stages of each path
 PUT = ("t_chunk", "t_read_wait", "t_dispatch", "t_consume", "t_barrier",
        "t_commit")
@@ -72,7 +72,7 @@ def test_put_and_drain_tick_give_every_documented_stage():
         assert rep.repaired_shares > 0 and sched.pending() == 0
         st = store.pipeline.stage_stats()
         assert set(st) == DOCUMENTED
-        for key in DRAIN + ("t_crc", "t_stage_read"):
+        for key in DRAIN + ("t_crc", "t_stage_read", "t_gather"):
             assert st[key] > 0.0, key
         assert st["t_chunk"] == st["t_commit"] == 0.0
 
@@ -145,6 +145,29 @@ def test_tallied_records_a_loop_once_on_its_own_thread():
     assert calls == {"x": 2, "y": 1} and times["x"] >= 0.003
 
 
+def test_tallied_without_record_hands_its_own_sum_back():
+    """``record=False`` yields the block's own ``[seconds, calls]`` and
+    records nothing; an open tally of the name is set aside meanwhile
+    and takes the blocks after it again."""
+    staging.reset_stage_times()
+    with staging.tallied("x") as outer:
+        with staging.staged("x"):
+            pass
+        with staging.tallied("x", record=False) as acc:
+            for _ in range(2):
+                with staging.staged("x"):
+                    time.sleep(0.001)
+        assert acc[1] == 2 and acc[0] >= 0.002
+        assert outer[1] == 1 and staging.stage_calls() == {}
+        with staging.staged("x"):
+            pass
+        assert outer[1] == 2
+    assert staging.stage_calls() == {"x": 1}
+    with staging.tallied("y", record=False) as acc:
+        pass
+    assert acc == [0.0, 0] and staging.stage_calls() == {"x": 1}
+
+
 def test_per_share_work_records_once_a_window():
     store, sched = make_store(put_tile_stripes=2, repair_tile_tasks=2)
     with store:
@@ -157,6 +180,7 @@ def test_per_share_work_records_once_a_window():
         calls = staging.stage_calls()
         assert rep.repaired_shares > 2 and rep.batch_calls == windows
         assert calls["crc"] == windows          # 9 helper CRCs a share
+        assert calls["gather"] == windows       # summed over its threads
         assert calls["select"] == calls["barrier"] == 1
         assert calls["read_wait"] == calls["dispatch"] == windows
 
