@@ -104,8 +104,13 @@ class Pipeline:
         (host operands staged onto the device), the store's ``t_chunk``
         (a put's payload into int32 blocks), ``t_commit`` (a put's
         commit), ``t_crc`` (share CRCs at put and of verified helper
-        reads; summed thread-seconds) and the repair scheduler's
-        ``t_select`` (queue walk and newcomer provisioning).
+        reads; summed thread-seconds), the repair scheduler's
+        ``t_select`` (queue walk and newcomer provisioning) and
+        ``t_gather`` (the repair's helper gather, summed thread-seconds),
+        and the read front end's ``t_fe_fetch`` (a pump's share fetches
+        and CRC checks), ``t_fe_decode`` (its cross-key decode map),
+        ``t_tick_pump`` and ``t_tick_drain`` (a ``tick``'s pump and its
+        repair drain), each on the calling thread.
 
         On a put, ``t_chunk + t_read_wait + t_dispatch + t_consume +
         t_barrier + t_commit`` accounts for the calling thread's time;

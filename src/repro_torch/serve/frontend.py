@@ -50,6 +50,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from repro_torch.exec.staging import staged, tallied
 from repro_torch.io.retry import GiveUpError
 from repro_torch.store.object_store import (CodedObjectStore, ObjectStat,
                                             share_crc)
@@ -153,6 +154,9 @@ class FrontEndMetrics:
         self.readmissions = 0
         self.decode_dispatches = 0
         self.degraded_stripes = 0
+        # stripes of the keys served (degraded or not); not in summary(),
+        # which stays the reference's
+        self.stripes_read = 0
         self.wall_latencies: list[float] = []
 
     def latency_percentiles(self) -> dict:
@@ -245,6 +249,7 @@ class ReadFrontEnd:
         self._queue: list[ReadTicket] = []
         self._uid = 0
         self._pool_obj: Optional[ThreadPoolExecutor] = None
+        self.last_drain = None    # the DrainReport of the last tick's drain
 
     # ------------------------------------------------------------- lifecycle
     @property
@@ -431,12 +436,16 @@ class ReadFrontEnd:
                     "degraded": 0, "hedged": 0, "crc_rejected": 0,
                     "patterns": 0, "avoided": set()}
             try:
-                for t in range(stat.n_stripes):
-                    pattern, dl = self._read_stripe(key, t, plan, avoid)
-                    if pattern is not None:
-                        groups.setdefault(pattern, []).append((key, t))
-                        downloads[(key, t)] = dl
-                        plan["degraded"] += 1
+                # the key's share fetches and CRC checks: one clock record
+                with tallied("fe_fetch"):
+                    for t in range(stat.n_stripes):
+                        with staged("fe_fetch"):
+                            pattern, dl = self._read_stripe(key, t, plan,
+                                                            avoid)
+                        if pattern is not None:
+                            groups.setdefault(pattern, []).append((key, t))
+                            downloads[(key, t)] = dl
+                            plan["degraded"] += 1
             except RuntimeError as e:       # < k readable shares
                 store.metrics.record_read("failed", 0.0, 0)
                 self._fail_tickets(tickets, e)
@@ -476,8 +485,9 @@ class ReadFrontEnd:
                     plans[key]["blocks"][t, list(missing)] = \
                         dec[:, g * S:(g + 1) * S]
 
-            store.pipeline.map(list(groups.items()), decode, scatter,
-                               read=gather)
+            with staged("fe_decode"):
+                store.pipeline.map(list(groups.items()), decode, scatter,
+                                   read=gather)
             self.metrics.decode_dispatches += len(groups)
             for _pattern, refs in groups.items():
                 for key in {k for k, _t in refs}:
@@ -644,6 +654,7 @@ class ReadFrontEnd:
                 self.metrics.deadline_misses += 1
         self.metrics.coalesced_requests += len(tickets) - 1
         self.metrics.degraded_stripes += res.degraded_stripes
+        self.metrics.stripes_read += self.store.stat(key).n_stripes
 
     def _resolve_key(self, key: str, plan: dict) -> None:
         obj = self.store.materialize(plan["stat"], plan["blocks"])
@@ -667,6 +678,7 @@ class ReadFrontEnd:
                 self.metrics.deadline_misses += 1
         self.metrics.coalesced_requests += len(tickets) - 1
         self.metrics.degraded_stripes += plan["degraded"]
+        self.metrics.stripes_read += plan["stat"].n_stripes
 
     def _fail_tickets(self, tickets: list[ReadTicket],
                       err: BaseException) -> None:
@@ -686,12 +698,18 @@ class ReadFrontEnd:
         quarantined nodes, then let the repair scheduler drain one
         bandwidth-throttled tick — foreground serving and background
         repair contend under the same :class:`LinkModel` budget (the
-        scheduler's ``repair_bandwidth_fraction`` is repair's slice)."""
-        served = self.pump()
+        scheduler's ``repair_bandwidth_fraction`` is repair's slice).
+        The drain's :class:`DrainReport` is kept as ``last_drain`` (None
+        when the tick drained nothing)."""
+        with staged("tick_pump"):
+            served = self.pump()
         scrubs = self.scrub_quarantined()
         repaired = remaining = 0
+        self.last_drain = None
         if self.scheduler is not None and self.scheduler.pending():
-            rep = self.scheduler.drain(repair_budget_symbols)
+            with staged("tick_drain"):
+                rep = self.scheduler.drain(repair_budget_symbols)
+            self.last_drain = rep
             repaired, remaining = rep.repaired_stripes, rep.remaining
         return {"served": len(served), "scrubbed": len(scrubs),
                 "repaired_stripes": repaired,

@@ -59,6 +59,15 @@ from .stripes import StripeCodec, StripeManager, StripeMap
 
 UP, FAILED = "up", "failed"
 
+# Stripe units (symbols) from which the repair's helper gather is shared
+# out over the store's pool.  A task's share reads, CRCs and row copies
+# are calls that hold the interpreter lock for a few microseconds each at
+# small units, and threads that hand the lock back and forth at that pace
+# wait on each other: on an H100 host a drain at S = 4096 ran 2.6-3.2x
+# faster gathering serially, while at S = 2^20 the fan-out was 3.8x faster
+# than serial.  The bound between the two is not measured.
+GATHER_FAN_OUT_MIN_SYMBOLS = 1 << 16
+
 
 class UnknownKeyError(KeyError):
     """``get``/``stat``/``delete`` on a key the store has never committed
@@ -1155,7 +1164,8 @@ class CodedObjectStore:
         task's verified helper rows go straight to their rows, the tasks
         shared out over the gathering thread and up to ``io_workers - 1``
         pool threads (`Pipeline.fan_out`) at depth > 1 with no fault
-        injector, and taken one by one otherwise.  Every path returns the
+        injector and stripe units of ``GATHER_FAN_OUT_MIN_SYMBOLS`` or
+        more, and taken one by one otherwise.  Every path returns the
         buffers to the pool, an error's too.
 
         tasks: (key, stripe, lost_code_node) triples, each single-loss
@@ -1186,10 +1196,11 @@ class CodedObjectStore:
         planner = getattr(self.code, "planner", None)
         # the gathering thread and up to io_workers - 1 pool threads fill
         # a window's tasks; serial at depth 1 (the store's serial
-        # baseline) and under a fault injector (its seeded draws fire in
-        # the reference's order)
+        # baseline), under a fault injector (its seeded draws fire in
+        # the reference's order) and below GATHER_FAN_OUT_MIN_SYMBOLS
         helpers = self.pipeline.io_workers - 1 \
-            if self.pipeline.depth > 1 and self.faults is None else 0
+            if self.pipeline.depth > 1 and self.faults is None \
+            and s >= GATHER_FAN_OUT_MIN_SYMBOLS else 0
         held: dict[int, list] = {}      # window -> operands not released
         launched: dict[int, Any] = {}   # window -> its PlanResult
 

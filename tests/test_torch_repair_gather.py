@@ -10,7 +10,9 @@ in storage and met by another thread skips and requeues the tick as the
 reference does, with every staging buffer back in the pool; several
 windows in one tick never deadlock; and `Pipeline.fan_out` itself runs
 each task once, raises the serial loop's error and completes with no
-pool thread free."""
+pool thread free.  The store fans out only from
+``GATHER_FAN_OUT_MIN_SYMBOLS``; these tests lower it to their small
+stripes, and one holds the rule itself."""
 import dataclasses
 import sys
 import threading
@@ -25,12 +27,19 @@ from repro_torch.core.circulant import CodeSpec as TSpec
 from repro_torch.exec import staging
 from repro_torch.exec.pipeline import Pipeline
 from repro_torch.store import CodedObjectStore, RepairScheduler
+from repro_torch.store import object_store
 from repro_torch.store.object_store import ShareIntegrityError
 
 K, NODES, S = 4, 12, 64
 LOST = 5
 TASKS = 15          # shares the lost node held
 DEADLINE_S = 60.0
+
+
+@pytest.fixture(autouse=True)
+def fan_out_at_small_stripes(monkeypatch):
+    """The fan-out at this file's stripes of S symbols."""
+    monkeypatch.setattr(object_store, "GATHER_FAN_OUT_MIN_SYMBOLS", S)
 
 
 def blob(n, seed):
@@ -136,6 +145,35 @@ def test_fan_out_engages_only_with_overlap_and_no_injector():
     assert threads(io_workers=4, pipeline_depth=1) == 1
     inj = FaultInjector(seed=0, sleep=lambda s: None)
     assert threads(io_workers=4, pipeline_depth=2, faults=inj) == 1
+
+
+def test_stripe_units_below_the_bound_gather_on_one_thread(monkeypatch):
+    """Below ``GATHER_FAN_OUT_MIN_SYMBOLS`` the gather stays on the
+    gathering thread, at any pool size and depth, and rebuilds what the
+    fanned-out gather does."""
+    seen = set()
+
+    def drain_threads():
+        store, sched = build(io_workers=4, pipeline_depth=2)
+        read = store._read_share_verified
+        seen.clear()
+
+        def spy(*a, **k):
+            seen.add(threading.get_ident())
+            time.sleep(0.002)
+            return read(*a, **k)
+
+        store._read_share_verified = spy
+        with store:
+            rep = sched.drain()
+            assert rep.repaired_shares == TASKS
+            return len(seen), shares(store), report(rep)
+
+    fanned = drain_threads()
+    monkeypatch.setattr(object_store, "GATHER_FAN_OUT_MIN_SYMBOLS", S + 1)
+    serial = drain_threads()
+    assert fanned[0] > 1 and serial[0] == 1
+    assert fanned[1:] == serial[1:]
 
 
 @pytest.mark.parametrize("workers", [2, 4])

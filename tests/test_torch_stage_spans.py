@@ -21,7 +21,8 @@ C = [195, 101, 85, 228, 68, 59, 183, 160]
 S = 1 << 12
 DOCUMENTED = {"t_stage_read", "t_read_wait", "t_dispatch", "t_consume",
               "t_barrier", "t_pack", "t_h2d", "t_chunk", "t_commit",
-              "t_crc", "t_select", "t_gather"}
+              "t_crc", "t_select", "t_gather", "t_tick_pump", "t_tick_drain",
+              "t_fe_fetch", "t_fe_decode"}
 # the calling thread's stages of each path
 PUT = ("t_chunk", "t_read_wait", "t_dispatch", "t_consume", "t_barrier",
        "t_commit")
