@@ -1,4 +1,4 @@
-"""Build and load the port's Hopper kernels.
+"""Build and load the port's Hopper kernels and its host libraries.
 
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes``.  Nothing links
@@ -8,6 +8,13 @@ the source and the flags, so an edited source rebuilds and an unchanged
 one is reused.  The first call that needs any kernel builds every missing
 library, one ``nvcc`` per source, all started together.
 
+Each ``csrc/*.cpp`` source (``HOST_SOURCES``) is host code: a CPython
+extension module built with the host's C++ compiler (no ``nvcc``, so the
+CPU tests run it too), keyed and placed the same way, and loaded on first
+use by :func:`load_host`.  Its flags take no ``-march``: the build
+directory can outlive the host, so a source picks its instruction sets at
+run time.
+
 Nothing here runs at import: the CPU tests import every module on hosts
 without ``nvcc``.
 """
@@ -15,21 +22,29 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 from pathlib import Path
+from types import ModuleType
+from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gf_matmul", "circulant_encode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_SOURCES = ("share_crc",)
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_HOST_MODULES: dict[str, ModuleType] = {}
 
 
 def nvcc_path() -> str:
@@ -43,10 +58,26 @@ def nvcc_path() -> str:
                        "kernels build on a host with the CUDA toolkit")
 
 
+def host_compiler() -> Optional[str]:
+    """The host's C++ compiler, or None where it has none."""
+    return shutil.which("c++")
+
+
+def host_flags() -> tuple[str, ...]:
+    """The host build's flags: ``HOST_FLAGS`` and this Python's headers."""
+    return (*HOST_FLAGS, "-I" + sysconfig.get_paths()["include"])
+
+
+def _source_and_flags(name: str) -> tuple[Path, tuple[str, ...]]:
+    if name in HOST_SOURCES:
+        return CSRC / f"{name}.cpp", host_flags()
+    return CSRC / f"{name}.cu", NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    src, flags = _source_and_flags(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all() -> float:
@@ -81,8 +112,52 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+def build_host(name: str, compiler: str) -> float:
+    """Build ``csrc/<name>.cpp`` with ``compiler`` if its library is
+    missing; return the seconds spent.  Raises RuntimeError with the
+    compiler's output if the build fails."""
+    so = library_path(name)
+    if so.exists():
+        return 0.0
+    src, flags = _source_and_flags(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    so.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{compiler} failed for {name}.cpp (exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, so)                # atomic: concurrent builds agree
+    return time.perf_counter() - t0
+
+
+def load_host(name: str) -> Optional[ModuleType]:
+    """The extension module built from ``csrc/<name>.cpp``, built on
+    first use; None on a host without a C++ compiler.  Raises if the host
+    has a compiler and the build fails."""
+    with _LOCK:
+        mod = _HOST_MODULES.get(name)
+        if mod is None:
+            compiler = host_compiler()
+            if compiler is None:
+                return None
+            build_host(name, compiler)
+            loader = importlib.machinery.ExtensionFileLoader(
+                name, str(library_path(name)))
+            mod = importlib.util.module_from_spec(
+                importlib.util.spec_from_loader(name, loader))
+            loader.exec_module(mod)
+            _HOST_MODULES[name] = mod
+        return mod
+
+
 def build_log(name: str) -> str:
-    """nvcc/ptxas output of the last build of ``name`` ('' if none)."""
+    """The compiler's output (nvcc and ptxas for a kernel) of the last
+    build of ``name`` ('' if none)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
@@ -108,5 +183,6 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"({msg})")
 
 
-__all__ = ["BUILD_DIR", "SOURCES", "build_all", "build_log", "load", "check",
-           "library_path", "nvcc_path"]
+__all__ = ["BUILD_DIR", "HOST_FLAGS", "HOST_SOURCES", "SOURCES", "build_all",
+           "build_host", "build_log", "check", "host_compiler", "host_flags",
+           "library_path", "load", "load_host", "nvcc_path"]

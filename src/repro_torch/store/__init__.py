@@ -22,12 +22,12 @@ repair, decode-inverse cache) into a multi-object storage subsystem:
 from .object_store import (FAILED, UP, CodedObjectStore, ConvertReceipt,
                            GetResult, ObjectStat, ShareIntegrityError,
                            StoreAudit, StoreMetrics, UnknownKeyError,
-                           share_crc, store_from_numpy)
+                           share_crc, share_crc_paths, store_from_numpy)
 from .scheduler import DrainReport, RepairScheduler
 from .stripes import StripeCodec, StripeManager, StripeMap
 
 __all__ = ["CodedObjectStore", "ObjectStat", "GetResult", "ConvertReceipt",
            "StoreAudit", "StoreMetrics", "UnknownKeyError",
-           "ShareIntegrityError", "share_crc", "store_from_numpy",
-           "RepairScheduler", "DrainReport", "StripeManager", "StripeCodec",
+           "ShareIntegrityError", "share_crc", "share_crc_paths",
+           "store_from_numpy", "RepairScheduler", "DrainReport", "StripeManager", "StripeCodec",
            "StripeMap", "UP", "FAILED"]

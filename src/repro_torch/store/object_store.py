@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import zlib
 from typing import Any, Callable, Iterator, Optional, Sequence
 
@@ -54,6 +55,7 @@ from repro_torch.exec.pipeline import Pipeline
 from repro_torch.exec.staging import record_stage, staged, tallied
 from repro_torch.io.faults import FaultInjector
 from repro_torch.io.retry import RetryPolicy, RetryStats
+from repro_torch.kernels import _build
 
 from .stripes import StripeCodec, StripeManager, StripeMap
 
@@ -103,17 +105,64 @@ def share_crc(a: np.ndarray, r: np.ndarray) -> int:
     block as raw uint8 bytes chained with the redundancy block's
     ``pack257`` halves (low bytes, then int64 indexes of 256).  Repairs
     are bit-exact, so a rebuilt share matches its put-time CRC without
-    any ledger rewrite.
+    any ledger rewrite.  The same CRC as the reference's for every
+    GF(257) share, and for every int32 input (a symbol counts by its low
+    byte).
 
-    Hot on the put/repair install path: zlib reads the array buffers
-    directly (no ``.tobytes()`` heap copies) and ``pack257`` is folded
-    inline — the truncating uint8 cast IS ``% 256`` for symbols in
-    [0, 256].  The same CRC as the reference's for every GF(257) share."""
+    Hot on every put, helper gather and front-end fetch, so it runs in
+    the native library ``csrc/share_crc.cpp``: one pass over the share,
+    a carry-less-multiply CRC where the CPU has PCLMULQDQ (a table CRC
+    elsewhere), with the interpreter lock released for the whole check of
+    a share of 2^15 symbols or more, so the gather's threads at large
+    units check their helpers in parallel.  Operands that are not
+    C-contiguous int32 are converted first.  A host without a C++
+    compiler takes the numpy formula (:func:`_share_crc_numpy`);
+    :func:`share_crc_paths` counts the checks by path."""
+    global _numpy_checks
+    native = _native_crc if _native_crc is not None else _load_native_crc()
+    if native is False:
+        with _numpy_checks_lock:
+            _numpy_checks += 1
+        return _share_crc_numpy(a, r)
+    crc = native.share_crc(a, r)
+    if crc is None:             # an operand is not C-contiguous int32
+        crc = native.share_crc(np.ascontiguousarray(a, np.int32),
+                               np.ascontiguousarray(r, np.int32))
+    return crc
+
+
+def _share_crc_numpy(a: np.ndarray, r: np.ndarray) -> int:
+    """:func:`share_crc` by numpy and zlib: the truncating uint8 cast IS
+    ``% 256`` for symbols in [0, 256], and zlib reads the array buffers
+    directly."""
     c = zlib.crc32(np.ascontiguousarray(a, np.uint8))
     sym = np.ascontiguousarray(r, np.int32).reshape(-1)
     c = zlib.crc32(sym.astype(np.uint8), c)
     return zlib.crc32(
         np.ascontiguousarray(np.nonzero(sym == 256)[0].astype(np.int64)), c)
+
+
+# the native library once loaded (False on a host without a C++ compiler),
+# and the checks the numpy formula ran
+_native_crc: Any = None
+_numpy_checks = 0
+_numpy_checks_lock = threading.Lock()
+
+
+def _load_native_crc() -> Any:
+    global _native_crc
+    mod = _build.load_host("share_crc")
+    _native_crc = False if mod is None else mod
+    return _native_crc
+
+
+def share_crc_paths() -> dict[str, int]:
+    """Share checks (:func:`share_crc` calls) in this process by the path
+    that ran them: ``"clmul"`` (the native carry-less-multiply CRC),
+    ``"table"`` (the native table CRC, on a CPU without PCLMULQDQ) and
+    ``"numpy"`` (the formula, on a host without a C++ compiler)."""
+    clmul, table = _native_crc.counts() if _native_crc else (0, 0)
+    return {"clmul": clmul, "table": table, "numpy": _numpy_checks}
 
 
 class StoreMetrics(MetricsLog):
@@ -1673,5 +1722,6 @@ def store_from_numpy(spec: CodeSpec, shares: Sequence[dict],
 
 __all__ = ["CodedObjectStore", "ObjectStat", "GetResult", "ConvertReceipt",
            "StoreAudit", "StoreMetrics", "UnknownKeyError",
-           "ShareIntegrityError", "share_crc", "store_from_numpy", "UP",
+           "ShareIntegrityError", "share_crc", "share_crc_paths",
+           "store_from_numpy", "UP",
            "FAILED"]
