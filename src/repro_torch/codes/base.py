@@ -23,12 +23,22 @@ Every family here sits at the MSR point: q = d - k + 1 blocks per node,
 D = k * q payload blocks, helpers send beta = 1 block (S symbols) per
 repair, so gamma = d * S = d * B / (k (d - k + 1)) symbols — the
 cut-set bound the property suite asserts for every registered family.
+
+The object store has one implementation of each operation and runs
+every object through its family's code: the put through
+``encode_derived_planned`` and ``stripe_share_blocks``, reads and
+multi-loss repairs through ``decode_rows`` / ``share_rows`` over
+``helper_block_ids``-stacked downloads, the share check through
+``share_crc_blocks``.  Its windowed single-loss repair owns the windows,
+the pooled operands, the gather and the installs; a family says only
+what a window's operands hold and how they are launched
+(``window_operand_rows``, ``fill_window_task``,
+``regenerate_window_planned``).
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
-import zlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -36,6 +46,8 @@ import numpy as np
 from repro_torch.core import gf
 from repro_torch.device import resolve_device
 from repro_torch.exec.plan import PlanResult
+
+from .crc import generic_share_crc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,18 +111,6 @@ class CodeRepairPlan:
         return self.blocks_downloaded
 
 
-def generic_share_crc(blocks: Sequence[np.ndarray]) -> int:
-    """CRC32 of one share's logical payload for q-block families: every
-    block's ``pack257`` halves chained (any block of a non-systematic
-    node can carry the symbol 256, so no raw-uint8 shortcut)."""
-    c = 0
-    for blk in blocks:
-        low, hi = gf.pack257(np.asarray(blk, np.int32))
-        c = zlib.crc32(np.ascontiguousarray(low, np.uint8).tobytes(), c)
-        c = zlib.crc32(np.ascontiguousarray(hi, np.int64).tobytes(), c)
-    return c
-
-
 def is_one_hot(row: np.ndarray) -> Optional[int]:
     """Index of the single 1 in a (1, q) selector row, or None if the
     row is a real projection — lets the store serve one-hot helper
@@ -136,7 +136,9 @@ class ErasureCode(abc.ABC):
     (``encode_derived_planned``), the any-k decode surface
     (``decode_rows`` / ``share_rows`` with ``helper_block_ids`` fixing
     the download stacking order), and the regeneration surface
-    (``repair_plan`` / ``newcomer_matrix``).
+    (``repair_plan`` / ``newcomer_matrix``).  The repair-window methods
+    have a generic default (helper sends, then newcomer products) that a
+    family with a cheaper launch overrides.
     """
 
     family: str = "abstract"
@@ -222,9 +224,9 @@ class ErasureCode(abc.ABC):
                          ) -> list[tuple[int, int]]:
         """Stacking order of the (k*q, S) decode download matrix:
         (code node, share block) per row.  Node-major by default; the
-        double-circulant family overrides to its historical block-major
-        [all data rows; all redundancy rows] order so the pre-existing
-        cached inverses and plan keys are reused bit-identically."""
+        double-circulant family overrides to block-major [all data rows;
+        all redundancy rows], the order its RepairEngine's cached
+        inverses and plan keys are built for."""
         return [(j, b) for j in subset for b in range(self.share_blocks)]
 
     @abc.abstractmethod
@@ -303,11 +305,10 @@ class ErasureCode(abc.ABC):
         """F independent single-loss regenerations in ONE batched
         dispatch: the per-plan (q, d) newcomer matrices stack to
         (F, q, d), the (F, d, S) helper sends ride ``matmul_batch``'s
-        one launch with one matrix per element (DESIGN.md §16.5).  This is the
-        coalescing path for families whose newcomer matrix varies per
-        (node, helpers) — ``supports_batched_regen()`` families that
-        cannot use the store's shared-matrix ``regenerate_batch``.
-        ``host()`` yields (F, q, S) rebuilt shares."""
+        one launch with one matrix per element (DESIGN.md §16.5): the
+        default repair window's newcomer launch, for families whose
+        newcomer matrix varies per (node, helpers).  ``host()`` yields
+        (F, q, S) rebuilt shares."""
         sends = np.asarray(sends, np.int32)
         if sends.ndim != 3 or sends.shape[0] != len(plans):
             raise ValueError(f"expected ({len(plans)}, d, S) sends, got "
@@ -315,6 +316,47 @@ class ErasureCode(abc.ABC):
         mats = np.stack([np.asarray(self.newcomer_matrix(p), np.int32)
                          for p in plans])
         return self.planner.matmul_batch(mats, sends, tag=self.family_key())
+
+    # --------------------------------------------------------- repair window
+    def window_operand_rows(self, tasks: int) -> tuple[int, ...]:
+        """Row counts of the (rows, S) operands one repair window of
+        ``tasks`` single-loss regenerations fills: the store hands
+        :meth:`fill_window_task` and :meth:`regenerate_window_planned`
+        one pooled buffer per entry.  By default one operand holding
+        every helper's q stored blocks, task by task in plan order."""
+        return (tasks * self.d * self.share_blocks,)
+
+    def fill_window_task(self, operands: Sequence[np.ndarray], j: int,
+                         plan: CodeRepairPlan, shares: Sequence[list],
+                         ) -> None:
+        """Write task ``j``'s rows of the window's operands in place from
+        its CRC-verified helper ``shares`` (stored ``[node, blk_0, ...]``
+        lists, in ``plan.helpers`` order).  Each task writes only its own
+        rows, so the store may fill a window's tasks on several threads
+        at once."""
+        (blocks,) = operands
+        q = self.share_blocks
+        row = j * self.d * q
+        for share in shares:
+            for b in range(q):
+                blocks[row + b] = share[1 + b]
+            row += q
+
+    def regenerate_window_planned(self, plans: Sequence[CodeRepairPlan],
+                                  operands: Sequence[np.ndarray],
+                                  ) -> PlanResult:
+        """One window's regenerations from its filled operands; ``host()``
+        yields the (F, q, S) rebuilt shares in task order.  By default two
+        planned launches: every helper send of the window
+        (:meth:`helper_sends`), then every newcomer product
+        (:meth:`regenerate_many_planned`)."""
+        (blocks,) = operands
+        q = self.share_blocks
+        stacks = blocks.reshape(len(plans) * self.d, q, -1)
+        sends = self.helper_sends(list(zip(
+            (sm for plan in plans for sm in plan.send_matrices), stacks)))
+        return self.regenerate_many_planned(
+            plans, sends.reshape(len(plans), self.d, -1))
 
     # ------------------------------------------------------------- dispatch
     def apply_planned(self, mat, blocks) -> PlanResult:
@@ -351,8 +393,11 @@ class ErasureCode(abc.ABC):
         return self.n * self.share_blocks / self.data_blocks
 
     def supports_batched_regen(self) -> bool:
-        """True when the store may coalesce this family's single-loss
-        repairs into batched dispatches (one launch per window)."""
+        """True when the family declares its single-loss repairs
+        coalescible into batched dispatches (one launch per window), as
+        the reference's families do.  The store does not read it: its
+        repair windows coalesce every family through
+        :meth:`regenerate_window_planned`."""
         return False
 
 

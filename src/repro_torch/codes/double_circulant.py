@@ -2,23 +2,23 @@
 :class:`~repro_torch.codes.base.ErasureCode` interface (the port of
 ``repro.codes.double_circulant``, DESIGN.md §15.1).
 
-A thin adapter over the existing `core.msr.DoubleCirculantMSR` /
-`core.repair.RepairEngine` pair — every operation delegates to the
-same planned kernels, cached inverses and node-invariant repair matrix
-the pre-registry store used, with the SAME plan keys (untagged) and the
-same ``[node, a, r]`` share layout, so adopting the interface changes
-neither bytes on "disk" nor compile counts:
+A thin adapter over `core.msr.DoubleCirculantMSR` /
+`core.repair.RepairEngine` — every operation delegates to their planned
+kernels, cached inverses and node-invariant repair matrix with untagged
+plan keys and the ``[node, a, r]`` share layout (the store wraps its own
+live code in it, so its objects keep the bytes, plan keys and compile
+counts of the inner code):
 
 * q = 2 blocks per share (a_{j-1}, r_j); D = n payload blocks;
-* ``helper_block_ids`` keeps the historical block-major download
-  stacking [all data rows; all redundancy rows], so ``decode_rows``
-  rides the RepairEngine's family-keyed inverse cache unchanged;
+* ``helper_block_ids`` stacks downloads block-major [all data rows; all
+  redundancy rows], so ``decode_rows`` rides the RepairEngine's
+  family-keyed inverse cache unchanged;
 * the repair plan is the embedded property: d = k+1 determined helpers
   (prev sends its redundancy block, next k send their data blocks —
   one-hot send matrices, zero helper-side field ops), and the newcomer
-  matrix is the node-invariant (2, k+1) fused repair matrix, which is
-  what lets the store coalesce its repairs into one shared-matrix
-  ``regenerate_batch`` launch per window.
+  matrix is the node-invariant (2, k+1) fused repair matrix, so a repair
+  window is two operands — each task's r_prev row and its k data rows —
+  regenerated in ONE shared-matrix ``regenerate_batch`` launch.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from repro_torch.core.msr import DoubleCirculantMSR
 from repro_torch.exec.plan import PlanResult
 
 from .base import CodeClass, CodeRepairPlan, ErasureCode
+from .crc import share_crc
 from .registry import FAMILY_DOUBLE_CIRCULANT, register_family
 
 
@@ -78,6 +79,7 @@ class DoubleCirculantCode(ErasureCode):
         self.mesh = self.inner.mesh
         self.device = self.inner.device
         self.planner = self.inner.planner
+        self._plans: dict[int, CodeRepairPlan] = {}
 
     # ------------------------------------------------------------- geometry
     @property
@@ -106,8 +108,8 @@ class DoubleCirculantCode(ErasureCode):
     # --------------------------------------------------------------- decode
     def helper_block_ids(self, subset: Sequence[int],
                          ) -> list[tuple[int, int]]:
-        # historical block-major stacking [a rows; r rows]: the cached
-        # RepairEngine inverses expect exactly this download layout
+        # block-major stacking [a rows; r rows]: the cached RepairEngine
+        # inverses expect exactly this download layout
         return [(j, 0) for j in subset] + [(j, 1) for j in subset]
 
     def decode_rows(self, subset: Sequence[int],
@@ -129,18 +131,21 @@ class DoubleCirculantCode(ErasureCode):
     def repair_plan(self, node: int,
                     available: Optional[Sequence[int]] = None,
                     ) -> Optional[CodeRepairPlan]:
-        plan = self.inner.repair_plan(node)
-        helpers = (plan.prev_node,) + plan.next_nodes
+        plan = self._plans.get(node)
+        if plan is None:
+            # determined by the node alone: built once per node
+            inner = self.inner.repair_plan(node)
+            send_red = np.array([[0, 1]], np.int32)    # prev sends r_{prev}
+            send_data = np.array([[1, 0]], np.int32)   # next k send a_{j-1}
+            plan = self._plans[node] = CodeRepairPlan(
+                node=node, helpers=(inner.prev_node,) + inner.next_nodes,
+                send_matrices=(send_red,) + (send_data,) * self.k,
+                blocks_downloaded=self.k + 1)
         if available is not None:
             avail = set(available)
-            if any(h not in avail for h in helpers):
+            if any(h not in avail for h in plan.helpers):
                 return None              # embedded helpers are DETERMINED
-        send_red = np.array([[0, 1]], np.int32)    # prev sends r_{prev}
-        send_data = np.array([[1, 0]], np.int32)   # next k send a_{j-1}
-        return CodeRepairPlan(
-            node=node, helpers=helpers,
-            send_matrices=(send_red,) + (send_data,) * self.k,
-            blocks_downloaded=self.k + 1)
+        return plan
 
     def newcomer_matrix(self, plan: CodeRepairPlan) -> np.ndarray:
         # node-invariant (2, k+1) fused repair matrix — valid only for
@@ -155,14 +160,31 @@ class DoubleCirculantCode(ErasureCode):
     def supports_batched_regen(self) -> bool:
         return True
 
+    # --------------------------------------------------------- repair window
+    def window_operand_rows(self, tasks: int) -> tuple[int, ...]:
+        return tasks, tasks * self.k     # r_prev rows, helper data rows
+
+    def fill_window_task(self, operands, j: int, plan: CodeRepairPlan,
+                         shares) -> None:
+        r_prevs, data = operands
+        r_prevs[j] = shares[0][2]
+        for m, share in enumerate(shares[1:]):
+            data[j * self.k + m] = share[1]
+
+    def regenerate_window_planned(self, plans, operands) -> PlanResult:
+        # both operands DMA'd as they lie, one gf_matmul launch a window
+        r_prevs, data = operands
+        return self.inner.repair.regenerate_batch_planned(
+            [plan.node for plan in plans], r_prevs,
+            data.reshape(len(plans), self.k, -1))
+
     # ------------------------------------------------------------- dispatch
     def apply_planned(self, mat, blocks) -> PlanResult:
-        # untagged: byte-identical plan keys to the pre-registry store
+        # untagged: the inner code's own plan keys
         return self.inner.repair.apply_planned(mat, blocks)
 
     # ------------------------------------------------------------ integrity
     def share_crc_blocks(self, blocks: Sequence[np.ndarray]) -> int:
-        from repro_torch.store.object_store import share_crc  # lazy: no cycle
         return share_crc(blocks[0], blocks[1])
 
 

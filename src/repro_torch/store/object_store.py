@@ -2,21 +2,29 @@
 stripes (the port of ``repro.store.object_store``, DESIGN.md §10).
 
 The store owns a ring of physical nodes (possibly more than the code's
-n = 2k) and, per stripe, places the n node shares — pairs
-(a_{j-1}, r_j) — via the rotating rack-aware placement of
-`store.stripes.StripeManager`.  Every byte it serves is a real field
-computation over really-stored symbols, so failures are verifiable
-bit-exactly, exactly like the cluster simulator one layer down.
+n) and, per stripe, places the n node shares via the rotating rack-aware
+placement of its `store.stripes.StripeCodec`.  Every byte it serves is a
+real field computation over really-stored symbols, so failures are
+verifiable bit-exactly, exactly like the cluster simulator one layer
+down.
+
+Each object is stored under a code class (DESIGN.md §15.1) — the
+store's double-circulant class unless the put names another — and every
+operation has one implementation that runs through that class's codec:
+the family's :class:`~repro_torch.codes.base.ErasureCode` says what a
+share holds, which rows a decode or a repair window reads and how they
+are launched; the store owns the windows, the pooled staging, the
+pipeline, the CRC checks and the installs.
 
 Read paths (DESIGN.md §10.2):
 
-* **systematic fast path** — a stripe whose n data shares are all
+* **systematic fast path** — a stripe whose data shares are all
   present is served as raw bytes, zero field operations;
 * **transparent degraded read** — stripes with missing data blocks are
   grouped by (helper subset, missing set) and ALL missing blocks of a
   group come out of ONE cached-inverse decode matmul: the per-stripe
-  (2k, S) downloads concatenate along the symbol axis, so a get that
-  spans a thousand stripes after a node failure still costs one
+  downloads concatenate along the symbol axis, so a get that spans a
+  thousand stripes after a node failure still costs one
   `gf.gauss_inverse` (LRU-cached) and one ``gf_matmul`` launch per
   failure pattern.
 
@@ -38,15 +46,14 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import threading
-import zlib
 from typing import Any, Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.codes import CodeClass, default_code_class, make_code
+from repro_torch.codes.crc import share_crc, share_crc_paths
 from repro_torch.codes.double_circulant import DoubleCirculantCode
-from repro_torch.core import baselines, gf, placement
+from repro_torch.core import baselines, placement
 from repro_torch.core.circulant import CodeSpec
 from repro_torch.core.msr import DoubleCirculantMSR
 from repro_torch.cluster.events import Event
@@ -55,9 +62,8 @@ from repro_torch.exec.pipeline import Pipeline
 from repro_torch.exec.staging import record_stage, staged, tallied
 from repro_torch.io.faults import FaultInjector
 from repro_torch.io.retry import RetryPolicy, RetryStats
-from repro_torch.kernels import _build
 
-from .stripes import StripeCodec, StripeManager, StripeMap
+from .stripes import StripeCodec, StripeMap
 
 UP, FAILED = "up", "failed"
 
@@ -99,72 +105,6 @@ class ShareIntegrityError(OSError):
         self.stripe = t
 
 
-def share_crc(a: np.ndarray, r: np.ndarray) -> int:
-    """CRC32 of one node share's LOGICAL payload — the checkpoint
-    manifest convention (DESIGN.md §12.2) applied per share: the data
-    block as raw uint8 bytes chained with the redundancy block's
-    ``pack257`` halves (low bytes, then int64 indexes of 256).  Repairs
-    are bit-exact, so a rebuilt share matches its put-time CRC without
-    any ledger rewrite.  The same CRC as the reference's for every
-    GF(257) share, and for every int32 input (a symbol counts by its low
-    byte).
-
-    Hot on every put, helper gather and front-end fetch, so it runs in
-    the native library ``csrc/share_crc.cpp``: one pass over the share,
-    a carry-less-multiply CRC where the CPU has PCLMULQDQ (a table CRC
-    elsewhere), with the interpreter lock released for the whole check of
-    a share of 2^15 symbols or more, so the gather's threads at large
-    units check their helpers in parallel.  Operands that are not
-    C-contiguous int32 are converted first.  A host without a C++
-    compiler takes the numpy formula (:func:`_share_crc_numpy`);
-    :func:`share_crc_paths` counts the checks by path."""
-    global _numpy_checks
-    native = _native_crc if _native_crc is not None else _load_native_crc()
-    if native is False:
-        with _numpy_checks_lock:
-            _numpy_checks += 1
-        return _share_crc_numpy(a, r)
-    crc = native.share_crc(a, r)
-    if crc is None:             # an operand is not C-contiguous int32
-        crc = native.share_crc(np.ascontiguousarray(a, np.int32),
-                               np.ascontiguousarray(r, np.int32))
-    return crc
-
-
-def _share_crc_numpy(a: np.ndarray, r: np.ndarray) -> int:
-    """:func:`share_crc` by numpy and zlib: the truncating uint8 cast IS
-    ``% 256`` for symbols in [0, 256], and zlib reads the array buffers
-    directly."""
-    c = zlib.crc32(np.ascontiguousarray(a, np.uint8))
-    sym = np.ascontiguousarray(r, np.int32).reshape(-1)
-    c = zlib.crc32(sym.astype(np.uint8), c)
-    return zlib.crc32(
-        np.ascontiguousarray(np.nonzero(sym == 256)[0].astype(np.int64)), c)
-
-
-# the native library once loaded (False on a host without a C++ compiler),
-# and the checks the numpy formula ran
-_native_crc: Any = None
-_numpy_checks = 0
-_numpy_checks_lock = threading.Lock()
-
-
-def _load_native_crc() -> Any:
-    global _native_crc
-    mod = _build.load_host("share_crc")
-    _native_crc = False if mod is None else mod
-    return _native_crc
-
-
-def share_crc_paths() -> dict[str, int]:
-    """Share checks (:func:`share_crc` calls) in this process by the path
-    that ran them: ``"clmul"`` (the native carry-less-multiply CRC),
-    ``"table"`` (the native table CRC, on a CPU without PCLMULQDQ) and
-    ``"numpy"`` (the formula, on a host without a C++ compiler)."""
-    clmul, table = _native_crc.counts() if _native_crc else (0, 0)
-    return {"clmul": clmul, "table": table, "numpy": _numpy_checks}
-
-
 class StoreMetrics(MetricsLog):
     """Cluster-layer accounting plus the store's write-side counters."""
 
@@ -194,9 +134,10 @@ class ObjectStat:
     ``dtype``/``shape`` are set for array objects so ``get`` returns the
     original array type; ``meta`` carries caller extras (e.g. the
     checkpointer's tree spec).  ``share_crcs[t][j]`` is the put-time
-    :func:`share_crc` of stripe ``t``'s code-node ``j+1`` share — the
-    ground truth end-to-end read integrity (DESIGN.md §13.2) verifies
-    against; ``None`` only for stats built by callers that predate it.
+    CRC of stripe ``t``'s code-node ``j+1`` share — the ground truth
+    end-to-end read integrity (DESIGN.md §13.2) verifies
+    against (the family's ``share_crc_blocks``); ``None`` only for
+    stats built by callers that predate it.
     """
     key: str
     size_bytes: int
@@ -269,10 +210,19 @@ class StoreAudit:
 class CodedObjectStore:
     """Multi-object MSR storage over a physical node ring.
 
+    Every object is stored under a code class (the store's
+    double-circulant class unless ``put`` names another) and every
+    operation has one implementation over that class's
+    :class:`~repro_torch.store.stripes.StripeCodec`: the store owns the
+    windows, staging, pipeline, CRC ledger and installs, the family's
+    :class:`~repro_torch.codes.base.ErasureCode` what a share holds and
+    which rows each launch reads.
+
     Parameters
     ----------
     spec : CodeSpec
-        The double circulant code every stripe is encoded with.
+        The store's double circulant code: the class of every object put
+        without a ``code_class``.
     n_nodes : int, optional
         Physical ring size (default the code's n = 2k; larger rings
         spread stripes so one node failure touches only a fraction of
@@ -308,10 +258,10 @@ class CodedObjectStore:
         host where overlap cannot win (DESIGN.md §16.4).
     put_tile_stripes : int
         Stripes per encode window on the put path — each window is one
-        planned circulant dispatch whose share placement overlaps the
+        planned encode dispatch whose share placement overlaps the
         next window's encode.
     repair_tile_tasks : int
-        Repair tasks per coalesced ``regenerate_batch`` dispatch in
+        Repair tasks per coalesced regeneration window in
         :meth:`repair_stripes_embedded` (the batch axis is bucketed, so
         variable task counts share plan keys).
     faults : FaultInjector, optional
@@ -354,15 +304,22 @@ class CodedObjectStore:
         if n_racks is None:
             n_racks = self._default_racks(spec, self.n_nodes)
         self.layout = placement.rack_layout(self.n_nodes, n_racks)
-        self.stripes = StripeManager(spec, self.layout,
-                                     stripe_symbols=stripe_symbols,
-                                     code=code, backend=backend,
-                                     mesh=mesh, device=device)
-        self.code = self.stripes.code
-        self.S = self.stripes.stripe_symbols
+        # per-object code classes (DESIGN.md §15): one stripe codec per
+        # class.  The default class's, built here, wraps the store's own
+        # code, so its planner and inverses are the store's; another
+        # class's is built on first use
+        self.default_class = default_code_class(spec)
+        self.code = code or DoubleCirculantMSR(spec, backend=backend,
+                                               mesh=mesh, device=device)
+        codec = StripeCodec(DoubleCirculantCode(self.default_class,
+                                                inner=self.code),
+                            self.layout, stripe_symbols=stripe_symbols)
+        self._codecs: dict[CodeClass, StripeCodec] = {
+            self.default_class: codec}
+        self.S = codec.stripe_symbols
         self.link = link or LinkModel()
         self.state = [UP] * self.n_nodes
-        # _shares[phys-1][(key, stripe)] = [code_node, a_block, r_block]
+        # _shares[phys-1][(key, stripe)] = [code_node, blk_0, ..., blk_q-1]
         self._shares: list[dict[tuple[str, int], list]] = \
             [dict() for _ in range(self.n_nodes)]
         self._stats: dict[str, ObjectStat] = {}
@@ -386,11 +343,6 @@ class CodedObjectStore:
         if pipeline_depth is None:
             pipeline_depth = 2 if (os.cpu_count() or 1) >= 2 else 1
         self.pipeline = Pipeline(io_workers=io_workers, depth=pipeline_depth)
-        # per-object code classes (DESIGN.md §15): objects default to the
-        # store's double-circulant class and take the battle-tested legacy
-        # paths; other classes dispatch through their family's codec
-        self.default_class = default_code_class(spec)
-        self._codecs: dict[str, StripeCodec] = {}
 
     @staticmethod
     def _default_racks(spec: CodeSpec, n_nodes: int) -> int:
@@ -530,9 +482,6 @@ class CodedObjectStore:
                 "read", ref, self._shares[phys - 1][(key, t)]),
             op=f"read:{ref}", stats=self.retry_stats, budget_s=budget_s)
 
-    def _read_share(self, phys: int, key: str, t: int) -> list:
-        return self.read_share(phys, key, t)
-
     def _read_share_verified(self, phys: int, key: str, t: int,
                              attempts: int = 3) -> list:
         """A share fetch CRC-gated against the put-time ledger — the
@@ -565,25 +514,16 @@ class CodedObjectStore:
         return stat.code_class if stat.code_class is not None \
             else self.default_class
 
-    def _is_default(self, cc: CodeClass) -> bool:
-        return cc == self.default_class
-
     def _codec_for(self, cc: CodeClass) -> StripeCodec:
-        """The (cached) stripe codec of a code class.  The default class
-        wraps the store's live code instance, so its planner, decode
-        inverses and plan keys are shared with the legacy paths; other
-        classes build their family from the registry on the same layout,
-        mesh and device (raises if the layout cannot place them
-        rack-safely)."""
-        codec = self._codecs.get(cc.key())
+        """The (cached) stripe codec of a code class.  The default class's
+        is built with the store; another class's family comes from the
+        registry on the same layout, mesh and device (raises if the
+        family is unknown or the layout cannot place it rack-safely)."""
+        codec = self._codecs.get(cc)
         if codec is None:
-            if self._is_default(cc):
-                code = DoubleCirculantCode(cc, inner=self.code)
-            else:
-                code = make_code(cc, mesh=self.code.mesh,
-                                 device=self.code.device)
+            code = make_code(cc, mesh=self.code.mesh, device=self.code.device)
             codec = StripeCodec(code, self.layout, stripe_symbols=self.S)
-            self._codecs[cc.key()] = codec
+            self._codecs[cc] = codec
         return codec
 
     def codec_of(self, key: str) -> StripeCodec:
@@ -593,10 +533,8 @@ class CodedObjectStore:
 
     def _share_crc_of(self, stat: ObjectStat, share: list) -> int:
         """Put-time CRC formula of a share under the object's family."""
-        cc = self._stat_class(stat)
-        if self._is_default(cc):
-            return share_crc(share[1], share[2])
-        return self._codec_for(cc).code.share_crc_blocks(share[1:])
+        return self._codec_for(self._stat_class(stat)).code \
+            .share_crc_blocks(share[1:])
 
     # -------------------------------------------------------------- put path
     def put(self, key: str, obj: Any, *, meta: Optional[dict] = None,
@@ -604,13 +542,14 @@ class CodedObjectStore:
         """Store ``obj`` (bytes or numpy array) under ``key``.
 
         The object is striped and encoded in ``put_tile_stripes``-wide
-        windows, each ONE planned circulant encode launch (shape-bucketed
-        plan keys — no new compiles at steady state), with window t's
-        share placement overlapping window t+1's encode through the
-        store pipeline (DESIGN.md §11.3).  Shares whose placed node is
-        FAILED are simply absent (lost-at-birth) — a later ``get``
-        degrades around them and the scheduler can rebuild them once
-        the slot is replaced.  Re-putting an existing key overwrites it.
+        windows, each ONE planned encode launch of the object's family
+        (shape-bucketed plan keys — no new compiles at steady state),
+        with window t's share placement overlapping window t+1's encode
+        through the store pipeline (DESIGN.md §11.3).  Shares whose
+        placed node is FAILED are simply absent (lost-at-birth) — a later
+        ``get`` degrades around them and the scheduler can rebuild them
+        once the slot is replaced.  Re-putting an existing key overwrites
+        it.
 
         **Atomicity** (DESIGN.md §12.2): shares are *staged* while the
         windows stream and only installed — ``_stats`` entry last —
@@ -620,8 +559,9 @@ class CodedObjectStore:
         object still fully readable.
 
         ``code_class`` selects the erasure-code family the object is
-        encoded with (DESIGN.md §15.1); ``None`` (and the store's
-        default class) keeps the double-circulant fast paths.
+        encoded with (DESIGN.md §15.1); ``None`` is the store's default
+        double-circulant class.  Shares are ``[code_node, blk_0, ...,
+        blk_{q-1}]`` (``[node, a, r]`` for the double-circulant class).
         """
         dtype = shape = None
         if isinstance(obj, np.ndarray):
@@ -633,18 +573,16 @@ class CodedObjectStore:
             raise TypeError(f"store objects are bytes or numpy arrays, "
                             f"got {type(obj).__name__}")
         cc = code_class if code_class is not None else self.default_class
-        if not self._is_default(cc):
-            return self._put_generic(key, payload, dtype, shape, meta, cc)
+        codec = self._codec_for(cc)
+        code = codec.code
+        n, q, d_blocks = codec.n, code.share_blocks, code.data_blocks
+        s = self.S
         with staged("chunk"):
-            blocks, smap = self.stripes.chunk(payload)
+            blocks, smap = codec.chunk(payload)
         base = self._next_stripe
         self._next_stripe += smap.n_stripes
         tile = self.put_tile_stripes
-        # installs keep views into the per-put block/redundancy arrays
-        # (each share aliases a disjoint slice, so scrub and fault drills
-        # behave as with copies)
-
-        planner = getattr(self.code, "planner", None)
+        planner = getattr(code, "planner", None)
 
         def flatten_window(t0: int):
             # host transpose on the pool — overlaps the previous window's
@@ -654,20 +592,20 @@ class CodedObjectStore:
             # lies (zero-copy path, DESIGN.md §16.1).
             tb = blocks[t0: t0 + tile]
             tt = tb.shape[0]
-            buf = self._stage_into(planner, self.n, tt * self.S)
+            buf = self._stage_into(planner, d_blocks, tt * s)
             if buf is None:
-                return tt, self.stripes.flatten(tb)
-            self.stripes.flatten(tb, out=buf[:, :tt * self.S])
+                return tt, codec.flatten(tb)
+            codec.flatten(tb, out=buf[:, :tt * s])
             return tt, buf
 
         def encode_window(t0: int, flat):
             tt, view = flat
-            return tt, self.code.encode_planned(view), view
+            return tt, code.encode_derived_planned(view), view
 
         placed: list[tuple[int, int, list]] = []    # (phys, t, share)
         # put-time integrity ledger: share_crcs[t][j] covers EVERY share,
         # including lost-at-birth ones a repair rebuilds later bit-exactly
-        crcs: list[list[int]] = [[0] * self.n for _ in range(smap.n_stripes)]
+        crcs: list[list[int]] = [[0] * n for _ in range(smap.n_stripes)]
 
         def place_window(t0: int, res) -> None:
             tt, planned, view = res
@@ -677,18 +615,23 @@ class CodedObjectStore:
 
             @tallied("crc")
             def install() -> None:
-                # CRC + share copies off the critical thread: the pool
-                # installs window t while window t+1's encode dispatches
-                red = self.stripes.unflatten(raw[:, :tt * self.S], tt)
+                # CRC + share placement off the critical thread: the pool
+                # installs window t while window t+1's encode dispatches.
+                # Installed blocks are views into the per-put block and
+                # derived arrays (each share aliases a disjoint slice, so
+                # scrub and fault drills behave as with copies)
+                derived = codec.unflatten_rows(raw[:, :tt * s],
+                                               code.derived_rows, tt)
                 for t in range(t0, t0 + tt):
-                    pl = self.stripes.placement(base + t)
+                    pl = codec.placement(base + t)
                     for j, phys in enumerate(pl):
-                        a_blk, r_blk = blocks[t, j], red[t - t0, j]
+                        blks = code.stripe_share_blocks(
+                            blocks[t], derived[t - t0], j + 1)
                         with staged("crc"):
-                            crcs[t][j] = share_crc(a_blk, r_blk)
+                            crcs[t][j] = code.share_crc_blocks(blks)
                         if self.is_up(phys):
                             self._guard("write", phys)
-                            placed.append((phys, t, [j + 1, a_blk, r_blk]))
+                            placed.append((phys, t, [j + 1, *blks]))
 
             self._install(install)
 
@@ -706,92 +649,13 @@ class CodedObjectStore:
                     self._shares[phys - 1][(key, t)] = share
             stat = ObjectStat(key=key, size_bytes=smap.orig_bytes,
                               n_stripes=smap.n_stripes,
-                              stripe_symbols=self.S, dtype=dtype,
-                              shape=shape, meta=dict(meta or {}),
-                              share_crcs=crcs,
-                              code_class=self.default_class)
-            stat.meta["_base_stripe"] = base
-            self._stats[key] = stat
-            self.metrics.record_put(smap.n_stripes * self.n * self.S,
-                                    2 * smap.n_stripes * self.n * self.S)
-        return stat
-
-    def _put_generic(self, key: str, payload: bytes, dtype, shape,
-                     meta: Optional[dict], cc: CodeClass) -> ObjectStat:
-        """Family-generic put (DESIGN.md §15.1): same windowed
-        encode-overlaps-placement pipeline and the same commit-last
-        atomicity as the default path, dispatched through the object's
-        codec.  Shares are ``[code_node, blk_0, ..., blk_{q-1}]``."""
-        codec = self._codec_for(cc)
-        code = codec.code
-        n, q, d_blocks = codec.n, code.share_blocks, code.data_blocks
-        with staged("chunk"):
-            blocks, smap = codec.chunk(payload)
-        base = self._next_stripe
-        self._next_stripe += smap.n_stripes
-        tile = self.put_tile_stripes
-
-        planner = getattr(code, "planner", None)
-
-        def flatten_window(t0: int):
-            tb = blocks[t0: t0 + tile]
-            tt = tb.shape[0]
-            buf = self._stage_into(planner, d_blocks, tt * self.S)
-            if buf is None:
-                return tt, codec.flatten(tb)
-            codec.flatten(tb, out=buf[:, :tt * self.S])
-            return tt, buf
-
-        def encode_window(t0: int, flat):
-            tt, view = flat
-            return tt, code.encode_derived_planned(view), view
-
-        placed: list[tuple[int, int, list]] = []    # (phys, t, share)
-        crcs: list[list[int]] = [[0] * n for _ in range(smap.n_stripes)]
-
-        def place_window(t0: int, res) -> None:
-            tt, planned, view = res
-            raw = planned.host()
-            if planner is not None:
-                planner.staging.release(view)
-
-            @tallied("crc")
-            def install() -> None:
-                derived = codec.unflatten_rows(raw[:, :tt * self.S],
-                                               code.derived_rows, tt)
-                for t in range(t0, t0 + tt):
-                    pl = codec.placement(base + t)
-                    for j, phys in enumerate(pl):
-                        blks = code.stripe_share_blocks(
-                            blocks[t], derived[t - t0], j + 1)
-                        with staged("crc"):
-                            crcs[t][j] = code.share_crc_blocks(blks)
-                        if self.is_up(phys):
-                            self._guard("write", phys)
-                            placed.append((phys, t, [j + 1] + [
-                                np.asarray(b, np.int32) for b in blks]))
-
-            self._install(install)
-
-        self.pipeline.map(range(0, smap.n_stripes, tile),
-                          encode_window, place_window, read=flatten_window)
-        # commit point — identical semantics to the default path: retire
-        # the old generation, install, publish the stat entry LAST
-        with staged("commit"):
-            if key in self._stats:
-                self.delete(key)
-            for phys, t, share in placed:
-                if self.is_up(phys):
-                    self._shares[phys - 1][(key, t)] = share
-            stat = ObjectStat(key=key, size_bytes=smap.orig_bytes,
-                              n_stripes=smap.n_stripes,
-                              stripe_symbols=self.S, dtype=dtype,
+                              stripe_symbols=s, dtype=dtype,
                               shape=shape, meta=dict(meta or {}),
                               share_crcs=crcs, code_class=cc)
             stat.meta["_base_stripe"] = base
             self._stats[key] = stat
-            self.metrics.record_put(smap.n_stripes * d_blocks * self.S,
-                                    smap.n_stripes * n * q * self.S)
+            self.metrics.record_put(smap.n_stripes * d_blocks * s,
+                                    smap.n_stripes * n * q * s)
         return stat
 
     # -------------------------------------------------------------- get path
@@ -803,13 +667,14 @@ class CodedObjectStore:
     def get_ext(self, key: str) -> GetResult:
         """Read with a receipt (bytes read, degraded stripes, latency).
 
-        All missing data blocks of the request are batched: stripes are
-        grouped by (helper subset, missing set) and each group is decoded
-        in ONE cached-inverse matmul over the symbol-axis-concatenated
-        downloads (DESIGN.md §10.2).  Groups run through the store
-        pipeline — download gathering on the pool, the planned decode
-        launch overlapped with the previous group's scatter
-        (DESIGN.md §11.3).
+        Systematic payload rows are served raw.  All missing payload rows
+        of the request are batched: stripes are grouped by (helper
+        subset, missing set) and each group is decoded in ONE
+        cached-inverse matmul of the object's family over the
+        symbol-axis-concatenated downloads (DESIGN.md §10.2).  Groups run
+        through the store pipeline — download gathering on the pool, the
+        planned decode launch overlapped with the previous group's
+        scatter (DESIGN.md §11.3).
 
         Raises
         ------
@@ -819,123 +684,31 @@ class CodedObjectStore:
             Some stripe has fewer than k shares left (data loss).
         """
         stat = self.stat(key)
-        if not self._is_default(self._stat_class(stat)):
-            return self._get_generic(stat)
-        base = stat.meta["_base_stripe"]
-        blocks = np.zeros((stat.n_stripes, self.n, self.S), np.int32)
-        # group degraded stripes by failure pattern
-        groups: dict[tuple, list[int]] = {}
-        latency = 0.0
-        bytes_read = 0
-        for t in range(stat.n_stripes):
-            pl = self.stripes.placement(base + t)
-            present = self._present_code_nodes(key, t, pl)
-            missing = tuple(j for j in range(self.n)
-                            if j + 1 not in present)
-            if not missing:
-                for j in range(self.n):
-                    blocks[t, j] = self._read_share(pl[j], key, t)[1]
-                lat = self.link.fetch_s(self.S)
-                self.metrics.record_read("systematic", lat, self.n * self.S)
-                latency = max(latency, lat)
-                bytes_read += self.n * self.S
-                continue
-            if len(present) < self.k:
-                self.metrics.record_read("failed", 0.0, 0)
-                raise RuntimeError(
-                    f"data loss: stripe {t} of {key!r} has only "
-                    f"{len(present)} of k={self.k} shares")
-            helpers = tuple(sorted(present)[: self.k])
-            # present data blocks are still served systematically — and
-            # billed as such, one record per block, matching the cluster
-            # simulator's read_all convention (the 2kS degraded billing
-            # below covers only the decode download set)
-            sys_lat = self.link.fetch_s(self.S)
-            for j in range(self.n):
-                if j + 1 in present:
-                    blocks[t, j] = self._read_share(pl[j], key, t)[1]
-                    self.metrics.record_read("systematic", sys_lat, self.S)
-                    bytes_read += self.S
-            latency = max(latency, sys_lat)
-            groups.setdefault((helpers, missing), []).append(t)
-        acct = {"bytes": 0, "latency": 0.0}
-        planner = getattr(self.code, "planner", None)
-
-        @tallied("crc")
-        def gather(item):
-            (helpers, _missing), ts = item
-            # pooled gather staging (DESIGN.md §16.1): the per-stripe
-            # downloads land directly in the buffer the decode reads —
-            # no concatenate copy, no second copy to pinned memory
-            buf = self._stage_into(planner, 2 * self.k, len(ts) * self.S)
-            if buf is None:
-                return np.concatenate([self._downloads(key, t, helpers)
-                                       for t in ts], axis=1)    # (2k, G*S)
-            for g, t in enumerate(ts):
-                buf[:, g * self.S:(g + 1) * self.S] = \
-                    self._downloads(key, t, helpers)
-            return buf
-
-        def decode(item, downloads):
-            (helpers, missing), _ts = item
-            mat = self.code.repair.decode_matrix(helpers)
-            return self.code.repair.apply_planned(mat[list(missing)],
-                                                  downloads), downloads
-
-        def scatter(item, res) -> None:
-            (_helpers, missing), ts = item
-            planned, downloads = res
-            decoded = planned.host()
-            if planner is not None:
-                planner.staging.release(downloads)
-            for g, t in enumerate(ts):
-                blocks[t, list(missing)] = \
-                    decoded[:, g * self.S:(g + 1) * self.S]
-            lat = self.link.degraded_read_s(2 * self.S, [1.0] * self.k)
-            # one download set per stripe in the group
-            for _ in ts:
-                self.metrics.record_read("degraded", lat, 2 * self.k * self.S)
-            acct["latency"] = max(acct["latency"], lat)
-            acct["bytes"] += 2 * self.k * self.S * len(ts)
-
-        self.pipeline.map(groups.items(), decode, scatter, read=gather)
-        latency = max(latency, acct["latency"])
-        bytes_read += acct["bytes"]
-        return GetResult(obj=self.materialize(stat, blocks),
-                         bytes_read=bytes_read,
-                         degraded_stripes=sum(len(v) for v in groups.values()),
-                         latency_s=latency)
-
-    def _get_generic(self, stat: ObjectStat) -> GetResult:
-        """Family-generic read (DESIGN.md §15.1): systematic payload
-        rows served raw, missing rows decoded through the object's
-        family — grouped by failure pattern, one cached-inverse matmul
-        per group over symbol-axis-concatenated downloads, exactly the
-        default path's shape."""
-        key = stat.key
-        cc = self._stat_class(stat)
-        codec = self._codec_for(cc)
+        codec = self._codec_for(self._stat_class(stat))
         code = codec.code
-        n, k, q = codec.n, codec.k, code.share_blocks
-        d_blocks = code.data_blocks
+        k, q, s = codec.k, code.share_blocks, self.S
         base = stat.meta["_base_stripe"]
-        locs = [code.data_location(m) for m in range(d_blocks)]
-        blocks = np.zeros((stat.n_stripes, d_blocks, self.S), np.int32)
+        locs = [code.data_location(m) for m in range(code.data_blocks)]
+        # a stripe's systematic fetch is billed as one node's: the payload
+        # blocks a systematic node holds, times S
+        fetch_symbols = sum(1 for j, _b in locs if j == locs[0][0]) * s
+        blocks = np.zeros((stat.n_stripes, len(locs), s), np.int32)
+        # group degraded stripes by failure pattern
         groups: dict[tuple, list[int]] = {}
         latency = 0.0
         bytes_read = 0
         for t in range(stat.n_stripes):
             pl = codec.placement(base + t)
             present = self._present_code_nodes(key, t, pl)
-            missing_rows = tuple(m for m, (j, _b) in enumerate(locs)
-                                 if j not in present)
-            if not missing_rows:
+            missing = tuple(m for m, (j, _b) in enumerate(locs)
+                            if j not in present)
+            if not missing:
                 for m, (j, b) in enumerate(locs):
-                    blocks[t, m] = self._read_share(pl[j - 1], key, t)[1 + b]
-                lat = self.link.fetch_s(q * self.S)
-                self.metrics.record_read("systematic", lat, d_blocks * self.S)
+                    blocks[t, m] = self.read_share(pl[j - 1], key, t)[1 + b]
+                lat = self.link.fetch_s(fetch_symbols)
+                self.metrics.record_read("systematic", lat, len(locs) * s)
                 latency = max(latency, lat)
-                bytes_read += d_blocks * self.S
+                bytes_read += len(locs) * s
                 continue
             if len(present) < k:
                 self.metrics.record_read("failed", 0.0, 0)
@@ -943,28 +716,33 @@ class CodedObjectStore:
                     f"data loss: stripe {t} of {key!r} has only "
                     f"{len(present)} of k={k} shares")
             helpers = tuple(sorted(present)[:k])
-            sys_lat = self.link.fetch_s(q * self.S)
+            # present payload blocks are still served systematically — and
+            # billed as such, one record per block, matching the cluster
+            # simulator's read_all convention (the k*q*S degraded billing
+            # below covers only the decode download set)
+            sys_lat = self.link.fetch_s(fetch_symbols)
             for m, (j, b) in enumerate(locs):
                 if j in present:
-                    blocks[t, m] = self._read_share(pl[j - 1], key, t)[1 + b]
-                    self.metrics.record_read("systematic", sys_lat, self.S)
-                    bytes_read += self.S
+                    blocks[t, m] = self.read_share(pl[j - 1], key, t)[1 + b]
+                    self.metrics.record_read("systematic", sys_lat, s)
+                    bytes_read += s
             latency = max(latency, sys_lat)
-            groups.setdefault((helpers, missing_rows), []).append(t)
+            groups.setdefault((helpers, missing), []).append(t)
         acct = {"bytes": 0, "latency": 0.0}
         planner = getattr(code, "planner", None)
 
         @tallied("crc")
         def gather(item):
             (helpers, _missing), ts = item
-            buf = self._stage_into(planner, k * q, len(ts) * self.S)
+            # pooled gather staging (DESIGN.md §16.1): the per-stripe
+            # downloads land directly in the buffer the decode reads —
+            # no concatenate copy, no second copy to pinned memory
+            buf = self._stage_into(planner, k * q, len(ts) * s)
             if buf is None:
-                return np.concatenate(
-                    [self._downloads_generic(key, t, helpers, codec)
-                     for t in ts], axis=1)                # (k*q, G*S)
+                buf = np.empty((k * q, len(ts) * s), np.int32)
             for g, t in enumerate(ts):
-                buf[:, g * self.S:(g + 1) * self.S] = \
-                    self._downloads_generic(key, t, helpers, codec)
+                self._downloads(code, codec.placement(base + t), key, t,
+                                helpers, out=buf[:, g * s:(g + 1) * s])
             return buf
 
         def decode(item, downloads):
@@ -980,13 +758,13 @@ class CodedObjectStore:
             if planner is not None:
                 planner.staging.release(downloads)
             for g, t in enumerate(ts):
-                blocks[t, list(missing)] = \
-                    decoded[:, g * self.S:(g + 1) * self.S]
-            lat = self.link.degraded_read_s(q * self.S, [1.0] * k)
+                blocks[t, list(missing)] = decoded[:, g * s:(g + 1) * s]
+            lat = self.link.degraded_read_s(q * s, [1.0] * k)
+            # one download set per stripe in the group
             for _ in ts:
-                self.metrics.record_read("degraded", lat, k * q * self.S)
+                self.metrics.record_read("degraded", lat, k * q * s)
             acct["latency"] = max(acct["latency"], lat)
-            acct["bytes"] += k * q * self.S * len(ts)
+            acct["bytes"] += k * q * s * len(ts)
 
         self.pipeline.map(groups.items(), decode, scatter, read=gather)
         latency = max(latency, acct["latency"])
@@ -997,17 +775,22 @@ class CodedObjectStore:
                          latency_s=latency)
 
     @tallied("crc")
-    def _downloads_generic(self, key: str, t: int, helpers: Sequence[int],
-                           codec: StripeCodec) -> np.ndarray:
-        """(k*q, S) stacked helper blocks in the family's
-        ``helper_block_ids`` order — CRC-verified like the default
-        path's ``_downloads``."""
-        base = self.stat(key).meta["_base_stripe"]
-        pl = codec.placement(base + t)
+    def _downloads(self, code, pl: Sequence[int], key: str, t: int,
+                   helpers: Sequence[int],
+                   out: Optional[np.ndarray] = None) -> np.ndarray:
+        """(k*q, S) stacked blocks of the helper code nodes of stripe
+        (key, t), placed at ``pl``, in the family's ``helper_block_ids``
+        order, written into ``out`` (a new array when None) —
+        CRC-verified: a decode matmul multiplies every helper into every
+        output, so one rotten input corrupts the whole stripe."""
         shares = {j: self._read_share_verified(pl[j - 1], key, t)
                   for j in helpers}
-        return np.stack([np.asarray(shares[j][1 + b], np.int32)
-                         for j, b in codec.code.helper_block_ids(helpers)])
+        ids = code.helper_block_ids(helpers)
+        if out is None:
+            out = np.empty((len(ids), self.S), np.int32)
+        for row, (j, b) in enumerate(ids):
+            out[row] = shares[j][1 + b]
+        return out
 
     def materialize(self, stat: ObjectStat, blocks: np.ndarray) -> Any:
         """(n_stripes, D, S) data blocks -> the stored object (bytes or
@@ -1015,13 +798,8 @@ class CodedObjectStore:
         (``get_ext`` and the serving front end's coalesced decodes).
         D is the object's family payload width (n for the default
         double-circulant class)."""
-        cc = self._stat_class(stat)
-        if self._is_default(cc):
-            payload = self.stripes.assemble(
-                blocks, StripeMap(stat.size_bytes, stat.n_stripes, self.S))
-        else:
-            payload = self._codec_for(cc).assemble(
-                blocks, StripeMap(stat.size_bytes, stat.n_stripes, self.S))
+        payload = self._codec_for(self._stat_class(stat)).assemble(
+            blocks, StripeMap(stat.size_bytes, stat.n_stripes, self.S))
         if stat.dtype is None:
             return payload
         return np.frombuffer(payload, dtype=np.dtype(stat.dtype)) \
@@ -1032,34 +810,23 @@ class CodedObjectStore:
         return {j + 1 for j, phys in enumerate(pl)
                 if (key, t) in self._shares[phys - 1]}
 
+    def _locate(self, key: str, t: int,
+                ) -> tuple[StripeCodec, tuple[int, ...]]:
+        """The codec of ``key``'s class and stripe ``t``'s placement."""
+        stat = self.stat(key)
+        codec = self._codec_for(self._stat_class(stat))
+        return codec, codec.placement(stat.meta["_base_stripe"] + t)
+
     def placement_of(self, key: str, t: int) -> tuple[int, ...]:
         """Physical nodes hosting stripe ``t`` of ``key``, by code node
         (index j holds code node j+1) — the front end's placement seam.
-        Length is the object's family n (the default class's n for
-        legacy objects)."""
-        stat = self.stat(key)
-        base = stat.meta["_base_stripe"]
-        cc = self._stat_class(stat)
-        if self._is_default(cc):
-            return self.stripes.placement(base + t)
-        return self._codec_for(cc).placement(base + t)
+        Length is the object's family n."""
+        return self._locate(key, t)[1]
 
     def present_code_nodes(self, key: str, t: int) -> set[int]:
         """Code nodes (1-indexed) of stripe (key, t) whose share is
         physically present."""
         return self._present_code_nodes(key, t, self.placement_of(key, t))
-
-    @tallied("crc")
-    def _downloads(self, key: str, t: int,
-                   helpers: Sequence[int]) -> np.ndarray:
-        """(2k, S) stacked [data; red] blocks of the helper code nodes —
-        CRC-verified: a decode matmul multiplies every helper into every
-        output, so one rotten input corrupts the whole stripe."""
-        pl = self.stripes.placement(self.stat(key).meta["_base_stripe"] + t)
-        shares = [self._read_share_verified(pl[i - 1], key, t)
-                  for i in helpers]
-        return np.concatenate([np.stack([s[1] for s in shares]),
-                               np.stack([s[2] for s in shares])], axis=0)
 
     # ----------------------------------------------------------- delete/stat
     def delete(self, key: str) -> None:
@@ -1130,9 +897,8 @@ class CodedObjectStore:
                 source_stripes=stat.n_stripes,
                 target_stripes=stat.n_stripes,
                 degraded_source_stripes=0, bytes_read=0, latency_s=0.0)
-        if not self._is_default(target_class):
-            # fail fast (unknown family, unsafe layout) BEFORE reading
-            self._codec_for(target_class)
+        # fail fast (unknown family, unsafe layout) BEFORE reading
+        self._codec_for(target_class)
         res = self.get_ext(key)
         meta = {mk: mv for mk, mv in stat.meta.items()
                 if mk != "_base_stripe"}
@@ -1178,71 +944,70 @@ class CodedObjectStore:
         all hold their shares (the cheap (k+1)S regeneration); other
         families consult their own ``repair_plan`` (product-matrix
         accepts ANY d present helpers)."""
-        stat = self.stat(key)
-        if self._is_default(self._stat_class(stat)):
-            base = stat.meta["_base_stripe"]
-            pl = self.stripes.placement(base + t)
-            plan = self.code.repair_plan(code_node)
-            shares = self._shares
-            needed = (plan.prev_node,) + plan.next_nodes
-            return all((key, t) in shares[pl[i - 1] - 1] for i in needed)
         return self.regen_plan_for(key, t, code_node) is not None
 
     def regen_plan_for(self, key: str, t: int, code_node: int):
         """The object's family :class:`~repro.codes.base.CodeRepairPlan`
         for regenerating ``code_node`` from the shares present, or None
         when the family cannot build one (fall back to full decode)."""
-        codec = self.codec_of(key)
-        pl = self.placement_of(key, t)
-        present = sorted(self._present_code_nodes(key, t, pl))
-        return codec.code.repair_plan(code_node, available=present)
+        codec, pl = self._locate(key, t)
+        return codec.code.repair_plan(
+            code_node, available=self._present_code_nodes(key, t, pl))
 
     def repair_stripes_embedded(self, tasks: Sequence[tuple[str, int, int]],
                                 ) -> tuple[int, int]:
         """Regenerate one lost share per task through coalesced
-        ``regenerate_batch`` launches (the scheduler's path,
-        DESIGN.md §10.3), pipelined in ``repair_tile_tasks``-wide
-        windows: window t's helper gathering runs on the pool and its
-        share writes overlap window t+1's planned launch (§11.3) — one
-        ``gf_matmul`` launch per window, the shared repair matrix read
-        with batch stride 0.  The batch axis is bucketed in the plan
-        key, so drains of different sizes share one plan.
-
-        A window's operands are two pooled staging buffers that its
-        gather fills in place and the planner DMAs as they lie: each
-        task's verified helper rows go straight to their rows, the tasks
-        shared out over the gathering thread and up to ``io_workers - 1``
-        pool threads (`Pipeline.fan_out`) at depth > 1 with no fault
-        injector and stripe units of ``GATHER_FAN_OUT_MIN_SYMBOLS`` or
-        more, and taken one by one otherwise.  Every path returns the
-        buffers to the pool, an error's too.
+        regeneration launches (the scheduler's path, DESIGN.md §10.3).
 
         tasks: (key, stripe, lost_code_node) triples, each single-loss
-        with a regeneration plan available (caller-checked).  The
-        default class's repair matrix is node-invariant, so stripes that
-        lost DIFFERENT code nodes still share a launch; tasks
-        of other code classes regenerate through their family's plan
-        (``d * S`` symbols each, one dispatch per task — only families
-        with ``supports_batched_regen()`` coalesce).  Returns (symbols
-        moved, dispatch count).
+        with a regeneration plan available (caller-checked).  They are
+        split by code class — other classes first, in the order they
+        appear, then the store's default class — and each class's tasks
+        run through :meth:`_regenerate_windows`.  The double-circulant
+        repair matrix is node-invariant, so stripes that lost DIFFERENT
+        code nodes still share a launch.  Returns (symbols moved, window
+        count).
         """
-        if not tasks:
-            return 0, 0
-        legacy, generic = [], []
+        groups: dict[CodeClass, list] = {}
         for task in tasks:
-            (legacy if self._is_default(self.class_of(task[0]))
-             else generic).append(task)
-        if generic:
-            symbols, dispatches = self._repair_generic(generic)
-            if legacy:
-                s2, d2 = self.repair_stripes_embedded(legacy)
-                symbols, dispatches = symbols + s2, dispatches + d2
-            return symbols, dispatches
-        tasks = legacy
+            groups.setdefault(self.class_of(task[0]), []).append(task)
+        default = groups.pop(self.default_class, None)
+        if default is not None:
+            groups[self.default_class] = default
+        symbols = dispatches = 0
+        for cc, group in groups.items():
+            moved, windows = self._regenerate_windows(self._codec_for(cc),
+                                                      group)
+            symbols, dispatches = symbols + moved, dispatches + windows
+        return symbols, dispatches
+
+    def _regenerate_windows(self, codec: StripeCodec,
+                            tasks: Sequence[tuple[str, int, int]],
+                            ) -> tuple[int, int]:
+        """One code class's single-loss regenerations, pipelined in
+        ``repair_tile_tasks``-wide windows: window t's helper gather runs
+        on the pool and its share writes overlap window t+1's planned
+        launch (§11.3).  The batch axis is bucketed in the plan key, so
+        drains of different sizes share one plan.
+
+        A window's operands are pooled staging buffers (their row counts
+        the family's ``window_operand_rows``) that its gather fills in
+        place and the planner DMAs as they lie: each task's verified
+        helper shares go straight to their rows
+        (``fill_window_task``), the tasks shared out over the gathering
+        thread and up to ``io_workers - 1`` pool threads
+        (`Pipeline.fan_out`) at depth > 1 with no fault injector and
+        stripe units of ``GATHER_FAN_OUT_MIN_SYMBOLS`` or more, and taken
+        one by one otherwise.  The family launches the window
+        (``regenerate_window_planned``): one ``gf_matmul`` launch for the
+        double-circulant class.  Every path returns the buffers to the
+        pool, an error's too.  Returns (symbols moved, window count).
+        """
+        code = codec.code
         tile = self.repair_tile_tasks
         windows = [tasks[i: i + tile] for i in range(0, len(tasks), tile)]
-        k, s = self.k, self.S
-        planner = getattr(self.code, "planner", None)
+        s = self.S
+        planner = getattr(code, "planner", None)
         # the gathering thread and up to io_workers - 1 pool threads fill
         # a window's tasks; serial at depth 1 (the store's serial
         # baseline), under a fault injector (its seeded draws fire in
@@ -1266,8 +1031,9 @@ class CodedObjectStore:
             # the window's operands, preallocated and filled in place, row
             # by row: the planner DMAs them as they lie (DESIGN.md §16.1)
             window = windows[w]
-            r_prevs, data = operand(len(window)), operand(len(window) * k)
-            held[w] = [r_prevs, data]
+            operands = held[w] = [
+                operand(rows)
+                for rows in code.window_operand_rows(len(window))]
             spent = []      # each task's crc and gather tallies
 
             def fill(j: int):
@@ -1277,54 +1043,55 @@ class CodedObjectStore:
                         staged("gather"):
                     spent.append((crc, took))
                     base = self.stat(key).meta["_base_stripe"]
-                    pl = self.stripes.placement(base + t)
-                    plan = self.code.repair_plan(node)
-                    r_prevs[j] = self._read_share_verified(
-                        pl[plan.prev_node - 1], key, t)[2]
-                    for m, i in enumerate(plan.next_nodes):
-                        data[j * k + m] = self._read_share_verified(
-                            pl[i - 1], key, t)[1]
-                return pl
+                    pl = codec.placement(base + t)
+                    present = self._present_code_nodes(key, t, pl)
+                    plan = code.repair_plan(node, available=present)
+                    if plan is None:
+                        raise RuntimeError(f"no regeneration plan for code "
+                                           f"node {node} of stripe {t} of "
+                                           f"{key!r}")
+                    code.fill_window_task(operands, j, plan, [
+                        self._read_share_verified(pl[h - 1], key, t)
+                        for h in plan.helpers])
+                return pl, plan
 
             try:
-                placements = self.pipeline.fan_out(len(window), fill,
-                                                   helpers=helpers)
+                filled = self.pipeline.fan_out(len(window), fill,
+                                               helpers=helpers)
             finally:
                 # summed over the threads, one record a window (an error's
                 # too: fan_out has waited for every task it started)
                 for name, accs in zip(("crc", "gather"), zip(*spent)):
                     if any(calls for _, calls in accs):
                         record_stage(name, sum(sec for sec, _ in accs))
-            return r_prevs, data.reshape(len(window), k, s), placements
+            return operands, filled
 
         def regen(w: int, gathered):
-            r_prevs, helper_data, placements = gathered
+            operands, filled = gathered
             try:
-                res = self.code.repair.regenerate_batch_planned(
-                    [node for _, _, node in windows[w]], r_prevs,
-                    helper_data)
+                res = code.regenerate_window_planned(
+                    [plan for _, plan in filled], operands)
             except BaseException:
                 held.pop(w, None)   # a copy may still read them: retired
                 raise
             launched[w] = res
-            return res, placements
+            return res, filled
 
         def land(w: int, out) -> None:
-            res, placements = out
-            pairs = res.host()              # its copies done: reusable
+            res, filled = out
+            rebuilt = res.host()            # its copies done: reusable
             release(w)
 
             def install() -> None:
                 # share copies off the critical thread (DESIGN.md §16.3)
-                for (key, t, node), pl, pair in zip(windows[w], placements,
-                                                    pairs):
+                for (key, t, node), (pl, _plan), blks in zip(
+                        windows[w], filled, rebuilt):
                     phys = pl[node - 1]
                     if not self.is_up(phys):
                         raise RuntimeError(f"replace node {phys} before "
                                            f"repairing onto it")
                     self._guard("write", phys)
-                    self._shares[phys - 1][(key, t)] = [node, pair[0],
-                                                        pair[1]]
+                    self._shares[phys - 1][(key, t)] = [node, *blks]
 
             self._install(install)
 
@@ -1342,163 +1109,26 @@ class CodedObjectStore:
                         held.pop(w)         # never released: retired
                         continue
                 release(w)
-        return len(tasks) * (self.k + 1) * self.S, len(windows)
-
-    def _repair_generic(self, tasks: Sequence[tuple[str, int, int]],
-                        ) -> tuple[int, int]:
-        """Family-generic single-loss repairs.  Families whose
-        ``supports_batched_regen()`` is True coalesce into windowed
-        per-element batched dispatches (``matmul_batch`` — one dispatch
-        per ``repair_tile_tasks`` window even though the newcomer
-        matrices differ per task, DESIGN.md §16.5); the rest keep the
-        one-dispatch-per-task plan path.  Returns (symbols moved,
-        dispatch count)."""
-        symbols = dispatches = 0
-        by_codec: dict[tuple, tuple[StripeCodec, list]] = {}
-        for task in tasks:
-            codec = self.codec_of(task[0])
-            by_codec.setdefault(self.class_of(task[0]).key(),
-                                (codec, []))[1].append(task)
-        for codec, group in by_codec.values():
-            if not codec.code.supports_batched_regen():
-                for key, t, node in group:
-                    symbols += self._repair_stripe_regen(key, t, node)
-                    dispatches += 1
-                continue
-            s2, d2 = self._repair_generic_batched(codec, group)
-            symbols, dispatches = symbols + s2, dispatches + d2
-        return symbols, dispatches
-
-    def _repair_generic_batched(self, codec: StripeCodec,
-                                tasks: Sequence[tuple[str, int, int]],
-                                ) -> tuple[int, int]:
-        """Coalesced single-loss regeneration for one non-default
-        family: window t's helper sends gather on the pool, each window
-        is ONE ``regenerate_many_planned`` dispatch (the (F, q, d)
-        newcomer-matrix stack rides the batched per-element matmul),
-        and installs overlap the next window's dispatch."""
-        code = codec.code
-        tile = self.repair_tile_tasks
-        windows = [tasks[i: i + tile] for i in range(0, len(tasks), tile)]
-        moved = [0]
-
-        @tallied("crc")
-        def gather(window):
-            plans, pairs, placements = [], [], []
-            for key, t, node in window:
-                pl = self.placement_of(key, t)
-                present = sorted(self._present_code_nodes(key, t, pl))
-                plan = code.repair_plan(node, available=present)
-                if plan is None:
-                    raise RuntimeError(f"no regeneration plan for code "
-                                       f"node {node} of stripe {t} of "
-                                       f"{key!r}")
-                pairs += [(sm, self._read_share_verified(pl[h - 1], key, t)
-                           [1:]) for sm, h in zip(plan.send_matrices,
-                                                  plan.helpers)]
-                plans.append(plan)
-                placements.append(pl)
-            # every helper send of the window in one dispatch
-            sends = code.helper_sends(pairs).reshape(
-                len(plans), -1, self.S)                  # (F, d, S)
-            return plans, sends, placements
-
-        def regen(window, gathered):
-            plans, sends, placements = gathered
-            return (code.regenerate_many_planned(plans, sends),
-                    plans, placements)
-
-        def land(window, out) -> None:
-            res, plans, placements = out
-            rebuilt = res.host()                         # (F, q, S)
-            for (key, t, node), plan, pl, blks in zip(window, plans,
-                                                      placements, rebuilt):
-                phys = pl[node - 1]
-                if not self.is_up(phys):
-                    raise RuntimeError(f"replace node {phys} before "
-                                       f"repairing onto it")
-                self._guard("write", phys)
-                self._shares[phys - 1][(key, t)] = [node] + list(blks)
-                moved[0] += plan.d * self.S
-
-        self.pipeline.map(windows, regen, land, read=gather)
-        return moved[0], len(windows)
-
-    @tallied("crc")
-    def _repair_stripe_regen(self, key: str, t: int, node: int) -> int:
-        """Bandwidth-optimal single-share regeneration through the
-        object's family plan (the generic counterpart of the coalesced
-        embedded path): helpers apply their (1, q) send matrices, the
-        newcomer one (q, d) matmul.  Returns symbols moved: d * S."""
-        codec = self.codec_of(key)
-        code = codec.code
-        pl = self.placement_of(key, t)
-        present = sorted(self._present_code_nodes(key, t, pl))
-        plan = code.repair_plan(node, available=present)
-        if plan is None:
-            raise RuntimeError(f"no regeneration plan for code node "
-                               f"{node} of stripe {t} of {key!r}")
-        sends = code.helper_sends([
-            (sm, self._read_share_verified(pl[h - 1], key, t)[1:])
-            for sm, h in zip(plan.send_matrices, plan.helpers)])
-        rebuilt = code.regenerate(plan, sends)          # (q, S)
-        phys = pl[node - 1]
-        if not self.is_up(phys):
-            raise RuntimeError(f"replace node {phys} before repairing "
-                               f"onto it")
-        self._guard("write", phys)
-        self._shares[phys - 1][(key, t)] = \
-            [node] + [np.asarray(b, np.int32).copy() for b in rebuilt]
-        return plan.d * self.S
+        return len(tasks) * code.gamma_regenerate_symbols(s), len(windows)
 
     def repair_stripe_full(self, key: str, t: int,
                            lost: Sequence[int]) -> int:
-        """Multi-loss repair: ONE decode matmul rebuilds the stripe's data
-        and every lost redundancy block (`reconstruct_with_repair`).
-        Returns symbols moved: k * q * S total (2k * S for the default
-        class), however many shares come back (ratio 1/F vs the RS
-        baseline).
+        """Multi-loss repair: ONE decode matmul (the family's
+        ``share_rows``) rebuilds every block of every lost node from a
+        k-subset.  Returns symbols moved: k * q * S total (2k * S for the
+        double-circulant class), however many shares come back (ratio
+        1/F vs the RS baseline).
         """
-        stat = self.stat(key)
-        if not self._is_default(self._stat_class(stat)):
-            return self._repair_stripe_full_generic(key, t, lost)
-        base = stat.meta["_base_stripe"]
-        pl = self.stripes.placement(base + t)
-        present = sorted(self._present_code_nodes(key, t, pl))
-        if len(present) < self.k:
-            raise RuntimeError(f"stripe {t} of {key!r} unrecoverable")
-        use = tuple(present[: self.k])
-        downloads = self._downloads(key, t, use)
-        # planned one-matmul decode + re-encode (combined matrix rides on
-        # the cached inverse; same math as reconstruct_with_repair)
-        mat = self.code.repair.decode_repair_matrix(use, list(lost))
-        data, red_f = self.code.repair.split_decode_output(
-            self.code.repair.apply_planned(mat, downloads).host())
-        for j, node in enumerate(lost):
-            phys = pl[node - 1]
-            if not self.is_up(phys):
-                raise RuntimeError(f"replace node {phys} before repairing "
-                                   f"onto it")
-            self._guard("write", phys)
-            self._shares[phys - 1][(key, t)] = \
-                [node, data[node - 1].copy(), red_f[j].copy()]
-        return 2 * self.k * self.S
-
-    def _repair_stripe_full_generic(self, key: str, t: int,
-                                    lost: Sequence[int]) -> int:
-        """Family-generic multi-loss repair: one ``share_rows`` matmul
-        rebuilds every block of every lost node from a k-subset."""
-        codec = self.codec_of(key)
+        codec, pl = self._locate(key, t)
         code = codec.code
         q = code.share_blocks
-        pl = self.placement_of(key, t)
         present = sorted(self._present_code_nodes(key, t, pl))
         if len(present) < codec.k:
             raise RuntimeError(f"stripe {t} of {key!r} unrecoverable")
         use = tuple(present[: codec.k])
-        downloads = self._downloads_generic(key, t, use, codec)
-        mat = code.share_rows(use, list(lost))
-        out = code.apply_planned(mat, downloads).host()
+        downloads = self._downloads(code, pl, key, t, use)
+        out = code.apply_planned(code.share_rows(use, list(lost)),
+                                 downloads).host()
         for j, node in enumerate(lost):
             phys = pl[node - 1]
             if not self.is_up(phys):
@@ -1507,7 +1137,7 @@ class CodedObjectStore:
             self._guard("write", phys)
             self._shares[phys - 1][(key, t)] = \
                 [node] + [out[j * q + b].copy() for b in range(q)]
-        return codec.k * q * self.S
+        return code.gamma_reconstruct_symbols(self.S)
 
     def rs_baseline_symbols(self, n_shares: int) -> int:
         """What a classical [n, k] RS store would download to rebuild
@@ -1518,11 +1148,8 @@ class CodedObjectStore:
         """Per-object RS re-download baseline: the object's family file
         size B = k * q * S per rebuilt share (equals the store-wide
         :meth:`rs_baseline_symbols` for default-class objects)."""
-        cc = self.class_of(key)
-        if self._is_default(cc):
-            return self.rs_baseline_symbols(n_shares)
-        code = self._codec_for(cc).code
-        return n_shares * code.gamma_reconstruct_symbols(self.S)
+        return n_shares * self.codec_of(key).code.gamma_reconstruct_symbols(
+            self.S)
 
     # ------------------------------------------------------ share integrity
     def share_intact(self, phys: int, key: str, t: int) -> Optional[bool]:
@@ -1611,47 +1238,23 @@ class CodedObjectStore:
         if not self.audit().clean:
             return False
         for key, stat in self._stats.items():
-            base = stat.meta["_base_stripe"]
+            codec = self._codec_for(self._stat_class(stat))
+            code = codec.code
             obj = self.get(key)
             payload = obj.tobytes() if isinstance(obj, np.ndarray) else obj
-            cc = self._stat_class(stat)
-            if not self._is_default(cc):
-                if not self._verify_generic(key, stat, payload, cc):
-                    return False
-                continue
-            blocks, smap = self.stripes.chunk(payload)
-            red = self.stripes.encode(blocks)
+            blocks, _smap = codec.chunk(payload)
+            derived = codec.encode_window(blocks)
             for t in range(stat.n_stripes):
-                pl = self.stripes.placement(base + t)
+                pl = codec.placement(stat.meta["_base_stripe"] + t)
                 for j, phys in enumerate(pl):
                     share = self._shares[phys - 1].get((key, t))
                     if share is None:
                         continue
-                    if not (np.array_equal(share[1], blocks[t, j])
-                            and np.array_equal(share[2], red[t, j])):
+                    expect = code.stripe_share_blocks(blocks[t], derived[t],
+                                                      j + 1)
+                    if not all(np.array_equal(share[1 + b], expect[b])
+                               for b in range(code.share_blocks)):
                         return False
-        return True
-
-    def _verify_generic(self, key: str, stat: ObjectStat, payload: bytes,
-                        cc: CodeClass) -> bool:
-        """Ground-truth re-encode comparison for a non-default-class
-        object: every present share block equals a fresh encode."""
-        codec = self._codec_for(cc)
-        code = codec.code
-        blocks, _smap = codec.chunk(payload)
-        derived = codec.encode_window(blocks)
-        for t in range(stat.n_stripes):
-            pl = codec.placement(stat.meta["_base_stripe"] + t)
-            for j, phys in enumerate(pl):
-                share = self._shares[phys - 1].get((key, t))
-                if share is None:
-                    continue
-                expect = code.stripe_share_blocks(blocks[t], derived[t],
-                                                  j + 1)
-                if not all(np.array_equal(share[1 + b],
-                                          np.asarray(expect[b], np.int32))
-                           for b in range(code.share_blocks)):
-                    return False
         return True
 
     def total_lost_shares(self) -> int:

@@ -5,7 +5,9 @@ filled row by row, in place, by the gathering thread and up to
 
 Held here, on the CPU: every pool size, depth and window width rebuilds
 the same shares, reports the same ``DrainReport`` and records the same
-stage calls as the serial gather and as the reference; a helper rotten
+stage calls as the serial gather and as the reference, with every object
+double-circulant and with one product-matrix object among them (its
+windows gathered the same way); a helper rotten
 in storage and met by another thread skips and requeues the tick as the
 reference does, with every staging buffer back in the pool; several
 windows in one tick never deadlock; and `Pipeline.fan_out` itself runs
@@ -21,7 +23,9 @@ import time
 import numpy as np
 import pytest
 
+import repro.codes as rcodes
 import repro.store as rstore
+import repro_torch.codes as tcodes
 from repro.core.circulant import CodeSpec as RSpec
 from repro_torch.core.circulant import CodeSpec as TSpec
 from repro_torch.exec import staging
@@ -33,6 +37,7 @@ from repro_torch.store.object_store import ShareIntegrityError
 K, NODES, S = 4, 12, 64
 LOST = 5
 TASKS = 15          # shares the lost node held
+PM = ("product-matrix", 8, 4, 6)
 DEADLINE_S = 60.0
 
 
@@ -47,19 +52,24 @@ def blob(n, seed):
         0, 256, size=n, dtype=np.uint8).tobytes()
 
 
-def build(pkg="port", **kw):
+def build(pkg="port", mixed=False, **kw):
+    """A store of 3 objects with node LOST failed and replaced; with
+    ``mixed``, the first object is product-matrix (class PM)."""
     if pkg == "port":
         store = CodedObjectStore(TSpec.make(K, 257), n_nodes=NODES,
                                  stripe_symbols=S, device="cpu", **kw)
         sched = RepairScheduler(store)
+        codes = tcodes
     else:
         store = rstore.CodedObjectStore(RSpec.make(K, 257), n_nodes=NODES,
                                         stripe_symbols=S, **kw)
         sched = rstore.RepairScheduler(store)
+        codes = rcodes
     store.subscribe(sched.on_event)
     # 3 objects, 23 stripes: the lost node holds TASKS of them
     for i, n in enumerate((9000, 2000, 500)):
-        store.put(f"o{i}", blob(n, i))
+        cc = codes.CodeClass(*PM) if mixed and i == 0 else None
+        store.put(f"o{i}", blob(n, i), code_class=cc)
     store.fail_node(LOST)
     store.replace_node(LOST)
     return store, sched
@@ -83,40 +93,58 @@ def in_use(store):
     return None if planner is None else planner.staging.stats().in_use
 
 
-def drained(pkg="port", **kw):
+def lost_by_class(store):
+    """The lost node's shares, counted by their object's code class."""
+    counts = {}
+    for key, _t in store.stripes_on(LOST):
+        cc = store.class_of(key).key()
+        counts[cc] = counts.get(cc, 0) + 1
+    return counts
+
+
+def drained(pkg="port", mixed=False, **kw):
     """Shares, the drain tick's report and the port's stage calls."""
-    store, sched = build(pkg, **kw)
+    store, sched = build(pkg, mixed, **kw)
     with store:
+        tasks = sum(lost_by_class(store).values())
+        assert mixed or tasks == TASKS
         held = in_use(store)
         staging.reset_stage_times()
         rep = sched.drain()
         calls = staging.stage_calls()
-        assert sched.pending() == 0 and rep.repaired_shares == TASKS
+        assert sched.pending() == 0 and rep.repaired_shares == tasks
         assert in_use(store) == held
         return shares(store), report(rep), calls
 
 
 @pytest.fixture(scope="module")
 def reference():
-    """The reference's drain, per window width."""
-    return {tile: drained("ref", repair_tile_tasks=tile)[:2]
-            for tile in (2, 3, 64)}
+    """The reference's drain, per window width and mix of classes."""
+    return {(tile, mixed): drained("ref", mixed, repair_tile_tasks=tile)[:2]
+            for tile in (2, 3, 64) for mixed in (False, True)}
 
 
+@pytest.mark.parametrize("mixed", [False, True])
 @pytest.mark.parametrize("tile", [2, 3, 64])
 @pytest.mark.parametrize("depth", [1, 2])
 @pytest.mark.parametrize("workers", [1, 2, 4])
 def test_gather_matches_the_serial_gather_and_the_reference(
-        workers, depth, tile, reference):
+        workers, depth, tile, mixed, reference):
     # 15 tasks: windows of 2 (8 windows, the last of 1), of 3 (5) and of
-    # 64 (1 of 15); no window count and no width divides by the workers
+    # 64 (1 of 15); no window count and no width divides by the workers.
+    # Mixed, each class's tasks are windowed apart: product-matrix first
     got = drained(io_workers=workers, pipeline_depth=depth,
-                  repair_tile_tasks=tile)
-    serial = drained(io_workers=1, pipeline_depth=1, repair_tile_tasks=tile)
-    windows = -(-TASKS // tile)
+                  repair_tile_tasks=tile, mixed=mixed)
+    serial = drained(io_workers=1, pipeline_depth=1, repair_tile_tasks=tile,
+                     mixed=mixed)
+    store, _sched = build(mixed=mixed)
+    with store:
+        counts = lost_by_class(store)
+    assert len(counts) == 1 + mixed
+    windows = sum(-(-n // tile) for n in counts.values())
     assert got[1]["batch_calls"] == windows
-    assert got[0] == serial[0] == reference[tile][0]
-    assert got[1] == serial[1] == reference[tile][1]
+    assert got[0] == serial[0] == reference[tile, mixed][0]
+    assert got[1] == serial[1] == reference[tile, mixed][1]
     assert got[2] == serial[2]
     assert got[2]["crc"] == got[2]["gather"] == windows
 

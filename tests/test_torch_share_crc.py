@@ -23,10 +23,10 @@ import pytest
 import repro.store as rstore
 from repro.core.circulant import CodeSpec as RSpec
 from repro.store.object_store import share_crc as ref_share_crc
+from repro_torch.codes import crc as crc_module
 from repro_torch.core.circulant import CodeSpec as TSpec
 from repro_torch.kernels import _build
 from repro_torch.store import CodedObjectStore, ShareIntegrityError
-from repro_torch.store import object_store
 from repro_torch.store.object_store import share_crc, share_crc_paths
 
 LENGTHS = (1, 15, 16, 63, 64, 65, 4095, 4096, (1 << 20) + 3)
@@ -83,7 +83,7 @@ def test_native_paths_equal_the_reference(path, case):
         pairs = [share(int(n), kind, int(n))]
     for a, r in pairs:
         want = ref_share_crc(a, r)
-        assert object_store._share_crc_numpy(a, r) == want
+        assert crc_module._share_crc_numpy(a, r) == want
         assert share_crc(a, r) == want
         if a.flags.c_contiguous and r.flags.c_contiguous:
             assert crc(a, r) == want
@@ -202,7 +202,7 @@ def fresh_build(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_HOST_MODULES", {})
-    monkeypatch.setattr(object_store, "_native_crc", None)
+    monkeypatch.setattr(crc_module, "_native_crc", None)
     return csrc
 
 
@@ -222,7 +222,7 @@ def test_host_library_builds_without_nvcc(fresh_build, monkeypatch):
     assert _build.build_host("share_crc", compiler) == 0.0     # reused
     a, r = share(5000, "some256", 5)
     assert share_crc(a, r) == ref_share_crc(a, r)
-    assert object_store._native_crc is _build._HOST_MODULES["share_crc"]
+    assert crc_module._native_crc is _build._HOST_MODULES["share_crc"]
 
 
 def test_host_library_name_is_keyed_by_source_and_flags(fresh_build,
@@ -247,7 +247,7 @@ def test_no_compiler_takes_the_numpy_formula(fresh_build, monkeypatch):
     assert share_crc(a, r) == ref_share_crc(a, r)
     assert share_crc(a[::3], r[::3]) == ref_share_crc(a[::3], r[::3])
     after = share_crc_paths()
-    assert object_store._native_crc is False
+    assert crc_module._native_crc is False
     assert after == {**before, "numpy": before["numpy"] + 2}
     assert not _build.BUILD_DIR.exists()
 

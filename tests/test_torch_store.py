@@ -134,9 +134,12 @@ def blob(n, seed=0):
         0, 256, size=n, dtype=np.uint8).tobytes()
 
 
-def put_some(sizes=(0, 5, 200, 999), seed=0):
+def put_some(sizes=(0, 5, 200, 999), seed=0, family=None):
+    """Put one object per size; ``family`` (a CodeClass's (family, n, k,
+    d)) puts them under that class instead of the store's default."""
     def script(pkg, st, sc):
-        return [st.put(f"o{i}", blob(n, seed + i))
+        cc = None if family is None else pkg.codes.CodeClass(*family)
+        return [st.put(f"o{i}", blob(n, seed + i), code_class=cc)
                 for i, n in enumerate(sizes)]
     return script
 
@@ -334,6 +337,7 @@ def _faults(rules, max_attempts=2):
     return make
 
 
+@pytest.mark.parametrize("family", [None, ("product-matrix", 4, 2, 3)])
 @pytest.mark.parametrize("rules,attempts", [
     ([{"op": "write", "match": "node:03", "kind": "transient"}], 2),
     ([{"op": "write", "match": "node:02", "kind": "transient",
@@ -342,22 +346,23 @@ def _faults(rules, max_attempts=2):
     ([{"op": "read", "kind": "corrupt", "prob": 0.2}], 3),
     ([{"op": "read", "kind": "latency", "latency_s": 0.0, "prob": 0.5},
       {"op": "write", "kind": "transient", "prob": 0.1}], 4)])
-def test_injected_faults_and_give_ups(rules, attempts):
+def test_injected_faults_and_give_ups(rules, attempts, family):
     # depth 1: share reads and writes run in program order, so both
     # packages consume the seeded fault stream in the same order (at
     # depth 2 the pool's threads interleave them)
     tw = Twin(k=2, n_nodes=4, stripe_symbols=16, pipeline_depth=1,
               faults=_faults(rules, attempts))
-    tw.run(put_some((900, 33)))
+    tw.run(put_some((900, 33), family=family))
     tw.run(lose(2, replace=False))
     tw.run(lambda pkg, st, sc: st.replace_node(2))
     tw.run(lambda pkg, st, sc: sc.drain(budget_symbols=10_000_000))
 
 
 # ----------------------------------------- staging, depth, pytree, sizes
+@pytest.mark.parametrize("family", [None, ("product-matrix", 8, 4, 6)])
 @pytest.mark.parametrize("depth,staging", [(1, True), (2, False),
                                            (3, True)])
-def test_pipeline_depth_and_staging_paths(depth, staging):
+def test_pipeline_depth_and_staging_paths(depth, staging, family):
     tw = Twin(k=4, n_nodes=11, stripe_symbols=24, pipeline_depth=depth,
               put_tile_stripes=3, repair_tile_tasks=5)
     # the port keeps only the zero-copy path; the reference's copying
@@ -365,7 +370,7 @@ def test_pipeline_depth_and_staging_paths(depth, staging):
     tw.sides[1][1].staging_enabled = staging
     pool = tw.port.code.planner.staging       # shared by the process
     held = pool.stats().in_use
-    tw.run(put_some((7000, 1000, 2)))
+    tw.run(put_some((7000, 1000, 2), family=family))
     tw.run(lose(4))
     tw.run(drain())
     tw.run(lose(1, 6, 7))

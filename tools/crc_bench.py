@@ -37,7 +37,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-from repro_torch.store import object_store  # noqa: E402
+from repro_torch.codes import crc  # noqa: E402
 
 
 def cpu_model() -> str:
@@ -91,9 +91,9 @@ def main(argv=None) -> int:
     ap.add_argument("--pool-mib", type=float, default=64.0,
                     help="int32 MiB of shares each thread cycles through")
     args = ap.parse_args(argv)
-    impls = {"native": object_store.share_crc,
-             "numpy": object_store._share_crc_numpy}
-    object_store.share_crc(*shares(16, 1, 0)[0])      # build and load first
+    impls = {"native": crc.share_crc,
+             "numpy": crc._share_crc_numpy}
+    crc.share_crc(*shares(16, 1, 0)[0])      # build and load first
     ratios = {}
     for S in (int(x) for x in args.stripes.split(",")):
         per = max(2, int(args.pool_mib * 2**20 // (8 * S)))
@@ -103,11 +103,11 @@ def main(argv=None) -> int:
                 assert impls["native"](a, r) == impls["numpy"](a, r)
             us = {}
             for name, fn in impls.items():
-                before = object_store.share_crc_paths()
+                before = crc.share_crc_paths()
                 t0 = time.perf_counter()
                 checks = window(fn, pools, args.seconds)
                 wall = time.perf_counter() - t0
-                after = object_store.share_crc_paths()
+                after = crc.share_crc_paths()
                 us[name] = wall / checks * 1e6
                 print(json.dumps({
                     "S": S, "threads": n_threads, "impl": name,
