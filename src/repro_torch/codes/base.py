@@ -204,7 +204,9 @@ class ErasureCode(abc.ABC):
                             node: int) -> list:
         """The q blocks node ``node`` stores for one stripe, assembled
         from the (D, S) payload rows and the (derived_rows, S) encode
-        product.  Views are acceptable; the store copies on install."""
+        product, each block one whole row of either.  The store installs
+        the blocks returned as they are: views of its per-put arrays,
+        whose rows are C-contiguous, never copied."""
 
     def encode_shares(self, data: np.ndarray) -> np.ndarray:
         """(D, S) payload blocks -> (n, q, S) node shares (the

@@ -104,7 +104,9 @@ class Pipeline:
         (host operands staged onto the device), the store's ``t_chunk``
         (a put's payload into int32 blocks), ``t_commit`` (a put's
         commit), ``t_crc`` (share CRCs at put and of verified helper
-        reads; summed thread-seconds), the repair scheduler's
+        reads; summed thread-seconds), ``t_install`` (a put window's
+        per-share work, its CRC and block assembly; summed
+        thread-seconds), the repair scheduler's
         ``t_select`` (queue walk and newcomer provisioning) and
         ``t_gather`` (the repair's helper gather, summed thread-seconds),
         and the read front end's ``t_fe_fetch`` (a pump's share fetches
@@ -169,7 +171,8 @@ class Pipeline:
             f.result()
 
     def fan_out(self, n: int, task: Callable[[int], Any], *,
-                helpers: int = 0) -> list:
+                helpers: int = 0,
+                around: Optional[Callable[[], Any]] = None) -> list:
         """``[task(i) for i in range(n)]``, run by the calling thread and
         up to ``helpers`` pool threads that pull indices from one shared
         cursor (``helpers=0`` is the serial loop).
@@ -183,25 +186,46 @@ class Pipeline:
         ended the error of the lowest failing index is raised: the one a
         serial loop raises, since every lower index was handed out
         earlier and has ended.
+
+        ``around``, when given, is a context-manager factory that each
+        thread taking part enters once, before its first task, and
+        leaves after its last: per-thread set-up such as a stage tally,
+        paid once a thread rather than once a task.  The call returns
+        only after every thread has left it.
         """
         results: list = [None] * n
         errors: dict = {}
         cond = threading.Condition()
         cursor, running = [0], [0]
 
-        def participate() -> None:
+        def run_tasks() -> None:
             while True:
                 with cond:
                     if cursor[0] >= n or errors:
                         return
                     i = cursor[0]
                     cursor[0] += 1
-                    running[0] += 1
                 try:
                     results[i] = task(i)
                 except BaseException as e:   # raised by the caller
                     with cond:
                         errors[i] = e
+
+        def participate() -> None:
+            with cond:
+                if cursor[0] >= n or errors:
+                    return
+                running[0] += 1
+            try:
+                if around is None:
+                    run_tasks()
+                else:
+                    with around():
+                        run_tasks()
+            except BaseException as e:      # around itself: after any task
+                with cond:
+                    errors.setdefault(n, e)
+            finally:
                 with cond:
                     running[0] -= 1
                     cond.notify_all()

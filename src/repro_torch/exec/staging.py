@@ -20,15 +20,15 @@ the one way the program times a stage: it adds the block's wall seconds
 and a call to stage ``name`` (``stage_times`` / ``stage_calls``).  The
 stages: "pack" (byte/symbol packing), "h2d" (staging a host operand onto
 the device), "land" (the checkpointer's landing copies), the store's
-"chunk", "commit", "crc", "gather" and the scheduler's "select", the read
-front end's "fe_fetch" and "fe_decode" and its tick's "tick_pump" and
-"tick_drain" (`repro_torch.serve.frontend`), and each pipeline's
-"stage_read", "read_wait", "dispatch", "consume" and "barrier"
-(`repro_torch.exec.pipeline`).  Per-share work inside a loop
+"chunk", "commit", "crc", "install", "gather" and the scheduler's
+"select", the read front end's "fe_fetch" and "fe_decode" and its tick's
+"tick_pump" and "tick_drain" (`repro_torch.serve.frontend`), and each
+pipeline's "stage_read", "read_wait", "dispatch", "consume" and
+"barrier" (`repro_torch.exec.pipeline`).  Per-share work inside a loop
 runs under ``tallied(name)``, which sums the loop's ``staged(name)``
 blocks on that thread and records them once, as one call; work shared
-out over threads hands each task's sum back (``tallied(name,
-record=False)``) and one thread records the total.
+out over threads hands each task's or each thread's sum back
+(``tallied(name, record=False)``) and one thread records the total.
 
 ``annotate(True)`` also opens every stage as a
 ``torch.profiler.record_function`` range named ``repro_torch.<stage>``,
@@ -56,8 +56,8 @@ POOL_BUCKET_MIN = 1 << 12
 PIPELINE_STAGES = ("t_stage_read", "t_read_wait", "t_dispatch",
                    "t_consume", "t_barrier")
 CLOCK_STAGES = ("t_pack", "t_h2d", "t_chunk", "t_commit", "t_crc",
-                "t_select", "t_gather", "t_tick_pump", "t_tick_drain",
-                "t_fe_fetch", "t_fe_decode")
+                "t_install", "t_select", "t_gather", "t_tick_pump",
+                "t_tick_drain", "t_fe_fetch", "t_fe_decode")
 STAGE_NAMES = PIPELINE_STAGES + CLOCK_STAGES
 
 # Name prefix of a stage's profiler range when annotation is on.

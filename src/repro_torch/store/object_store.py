@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from contextlib import contextmanager
 from typing import Any, Callable, Iterator, Optional, Sequence
 
 import numpy as np
@@ -67,13 +68,14 @@ from .stripes import StripeCodec, StripeMap
 
 UP, FAILED = "up", "failed"
 
-# Stripe units (symbols) from which the repair's helper gather is shared
-# out over the store's pool.  A task's share reads, CRCs and row copies
-# are calls that hold the interpreter lock for a few microseconds each at
-# small units, and threads that hand the lock back and forth at that pace
-# wait on each other: on an H100 host a drain at S = 4096 ran 2.6-3.2x
-# faster gathering serially, while at S = 2^20 the fan-out was 3.8x faster
-# than serial.  The bound between the two is not measured.
+# Stripe units (symbols) from which the repair's helper gather and the
+# put's share checks are shared out over the store's pool.  A task's
+# share reads, CRCs and row copies are calls that hold the interpreter
+# lock for a few microseconds each at small units, and threads that hand
+# the lock back and forth at that pace wait on each other: on an H100
+# host a drain at S = 4096 ran 2.6-3.2x faster gathering serially, while
+# at S = 2^20 the fan-out was 3.8x faster than serial.  The bound between
+# the two is not measured.
 GATHER_FAN_OUT_MIN_SYMBOLS = 1 << 16
 
 
@@ -412,6 +414,20 @@ class CodedObjectStore:
         else:
             work()
 
+    def _fan_out_helpers(self) -> int:
+        """Pool threads that join a window's per-share work (the repair's
+        helper gather, the put's share checks) beside the thread running
+        it, through `Pipeline.fan_out`: ``io_workers - 1`` at depth > 1,
+        with no fault injector and stripe units of
+        ``GATHER_FAN_OUT_MIN_SYMBOLS`` or more; 0 (serial) otherwise — at
+        depth 1 the store's serial baseline, under an injector so its
+        seeded draws fire in the reference's order, and below the bound
+        where the checks are too short to share the interpreter lock."""
+        if self.pipeline.depth > 1 and self.faults is None \
+                and self.S >= GATHER_FAN_OUT_MIN_SYMBOLS:
+            return self.pipeline.io_workers - 1
+        return 0
+
     # ------------------------------------------------------------ node state
     def subscribe(self, fn: Callable[[Event], None]) -> None:
         """Register a callback for store events (``fail`` on node loss) —
@@ -545,7 +561,11 @@ class CodedObjectStore:
         windows, each ONE planned encode launch of the object's family
         (shape-bucketed plan keys — no new compiles at steady state),
         with window t's share placement overlapping window t+1's encode
-        through the store pipeline (DESIGN.md §11.3).  Shares whose
+        through the store pipeline (DESIGN.md §11.3).  A window's shares
+        are views of its encode result and the payload blocks, where they
+        lie; their CRCs are shared out over the pool as the repair's
+        gather is (`_fan_out_helpers`), and every share is placed after
+        every check has ended.  Shares whose
         placed node is FAILED are simply absent (lost-at-birth) — a later
         ``get`` degrades around them and the scheduler can rebuild them
         once the slot is replaced.  Re-putting an existing key overwrites
@@ -613,25 +633,55 @@ class CodedObjectStore:
             if planner is not None:
                 planner.staging.release(view)
 
-            @tallied("crc")
             def install() -> None:
-                # CRC + share placement off the critical thread: the pool
-                # installs window t while window t+1's encode dispatches.
-                # Installed blocks are views into the per-put block and
-                # derived arrays (each share aliases a disjoint slice, so
+                # share checks + placement off the critical thread: the
+                # pool installs window t while window t+1's encode
+                # dispatches.  Every installed block is a C-contiguous
+                # (S,) view of the per-put payload blocks or of this
+                # window's encode result, where it lies: the window's
+                # i-th stripe's derived rows are the (rows, S) view
+                # derived[:, i] (each share aliases a disjoint slice, so
                 # scrub and fault drills behave as with copies)
-                derived = codec.unflatten_rows(raw[:, :tt * s],
-                                               code.derived_rows, tt)
+                derived = raw[:, :tt * s].reshape(code.derived_rows, tt, s)
+                spent = []      # each thread's crc and install tallies
+
+                @contextmanager
+                def tallies():
+                    # once a thread: a tally a task would cost more than
+                    # a check at small stripe units
+                    with tallied("crc", record=False) as crc, \
+                            tallied("install", record=False) as took, \
+                            staged("install"):
+                        spent.append((crc, took))
+                        yield
+
+                def check(i: int) -> list:
+                    t, j = divmod(i, n)
+                    blks = code.stripe_share_blocks(
+                        blocks[t0 + t], derived[:, t], j + 1)
+                    with staged("crc"):
+                        crcs[t0 + t][j] = code.share_crc_blocks(blks)
+                    return blks
+
+                try:
+                    checked = self.pipeline.fan_out(
+                        tt * n, check, helpers=self._fan_out_helpers(),
+                        around=tallies)
+                finally:
+                    # summed over the threads, one record a window (an
+                    # error's too: fan_out has waited for every thread)
+                    for name, accs in zip(("crc", "install"), zip(*spent)):
+                        if any(calls for _, calls in accs):
+                            record_stage(name, sum(sec for sec, _ in accs))
+                # every share checked: place them in the reference's order
+                # (the fault injector's seeded draws fire as there)
                 for t in range(t0, t0 + tt):
                     pl = codec.placement(base + t)
                     for j, phys in enumerate(pl):
-                        blks = code.stripe_share_blocks(
-                            blocks[t], derived[t - t0], j + 1)
-                        with staged("crc"):
-                            crcs[t][j] = code.share_crc_blocks(blks)
                         if self.is_up(phys):
                             self._guard("write", phys)
-                            placed.append((phys, t, [j + 1, *blks]))
+                            placed.append((phys, t, [
+                                j + 1, *checked[(t - t0) * n + j]]))
 
             self._install(install)
 
@@ -1009,12 +1059,8 @@ class CodedObjectStore:
         s = self.S
         planner = getattr(code, "planner", None)
         # the gathering thread and up to io_workers - 1 pool threads fill
-        # a window's tasks; serial at depth 1 (the store's serial
-        # baseline), under a fault injector (its seeded draws fire in
-        # the reference's order) and below GATHER_FAN_OUT_MIN_SYMBOLS
-        helpers = self.pipeline.io_workers - 1 \
-            if self.pipeline.depth > 1 and self.faults is None \
-            and s >= GATHER_FAN_OUT_MIN_SYMBOLS else 0
+        # a window's tasks (serial where _fan_out_helpers says so)
+        helpers = self._fan_out_helpers()
         held: dict[int, list] = {}      # window -> operands not released
         launched: dict[int, Any] = {}   # window -> its PlanResult
 

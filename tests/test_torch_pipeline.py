@@ -130,8 +130,9 @@ def test_stage_stats_rebase_and_keys():
     # the documented key set: the reference's keys but its dead t_pad
     documented = {"t_stage_read", "t_read_wait", "t_dispatch", "t_consume",
                   "t_barrier", "t_pack", "t_h2d", "t_chunk", "t_commit",
-                  "t_crc", "t_select", "t_gather", "t_tick_pump",
-                  "t_tick_drain", "t_fe_fetch", "t_fe_decode"}
+                  "t_crc", "t_install", "t_select", "t_gather",
+                  "t_tick_pump", "t_tick_drain", "t_fe_fetch",
+                  "t_fe_decode"}
     assert set(st) == set(tstaging.STAGE_NAMES) == documented
     assert set(RPipeline().stage_stats()) - {"t_pad"} <= documented
     assert st["t_pack"] == pytest.approx(0.25) and st["t_chunk"] == 0.0

@@ -21,8 +21,8 @@ C = [195, 101, 85, 228, 68, 59, 183, 160]
 S = 1 << 12
 DOCUMENTED = {"t_stage_read", "t_read_wait", "t_dispatch", "t_consume",
               "t_barrier", "t_pack", "t_h2d", "t_chunk", "t_commit",
-              "t_crc", "t_select", "t_gather", "t_tick_pump", "t_tick_drain",
-              "t_fe_fetch", "t_fe_decode"}
+              "t_crc", "t_install", "t_select", "t_gather", "t_tick_pump",
+              "t_tick_drain", "t_fe_fetch", "t_fe_decode"}
 # the calling thread's stages of each path
 PUT = ("t_chunk", "t_read_wait", "t_dispatch", "t_consume", "t_barrier",
        "t_commit")
@@ -63,7 +63,7 @@ def test_put_and_drain_tick_give_every_documented_stage():
         store.put("a", payload(1))              # an overwrite: commit retires
         st = store.pipeline.stage_stats()
         assert set(st) == DOCUMENTED
-        for key in PUT + ("t_crc", "t_stage_read", "t_pack"):
+        for key in PUT + ("t_crc", "t_install", "t_stage_read", "t_pack"):
             assert st[key] > 0.0, key
         assert st["t_select"] == 0.0
 
@@ -188,7 +188,7 @@ def test_per_share_work_records_once_a_window():
         staging.reset_stage_times()
         store.put("a", payload(2))              # 4 stripes, 2 windows
         calls = staging.stage_calls()
-    assert calls["crc"] == 2                    # 16 shares a window
+    assert calls["crc"] == calls["install"] == 2    # 16 shares a window
     assert calls["chunk"] == calls["commit"] == calls["barrier"] == 1
     assert calls["read_wait"] == calls["dispatch"] == calls["consume"] == 2
 
