@@ -5,7 +5,16 @@ the objects the configuration stores.
 A configuration is a JSON file under ``perfbench/configs/``.  Its
 ``code`` fixes the erasure code, ``store`` the deployment (nodes, racks,
 stripe size) and ``frontend`` the read front end's service policy;
-``objects`` says how many objects of which sizes the store holds.  The
+``objects`` says how many objects of which sizes the store holds.
+
+``code["family"]`` is ``double-circulant`` (``k``, ``p`` and the
+coefficients ``c``; n = 2k, d = k + 1) or ``product-matrix`` (``n``,
+``k``, ``d``, ``p`` and the n + i evaluation points ``g``).  The store
+is always built on a double-circulant class, its default; a
+product-matrix configuration names its own class on every put
+(``code_class``), and may state the default class's coefficients as
+``default_c`` (otherwise the program searches for them, a few seconds
+of set-up).  The
 program's tuning knobs (pipeline depth, tile widths, pool sizes) are
 left at the program's defaults, so a change to a default is measured.
 """
@@ -56,13 +65,43 @@ def build_store(cfg: dict, *, device=None, backend: str | None = None):
     from repro_torch.core.circulant import CodeSpec
     from repro_torch.store import CodedObjectStore
     code, st = cfg["code"], cfg["store"]
-    if code["family"] != "double-circulant":
+    if code["family"] == "double-circulant":
+        c = code["c"]
+    elif code["family"] == "product-matrix":
+        c = code.get("default_c")
+    else:
         raise ValueError(f"unknown code family {code['family']!r}")
-    spec = CodeSpec.make(int(code["k"]), int(code["p"]), c=code["c"])
+    spec = CodeSpec.make(int(code["k"]), int(code["p"]), c=c)
     return CodedObjectStore(spec, n_nodes=int(st["n_nodes"]),
                             n_racks=st.get("n_racks"),
                             stripe_symbols=int(st["stripe_symbols"]),
                             device=device, backend=backend)
+
+
+def code_class(cfg: dict):
+    """The class each put names: None for the double-circulant family
+    (the store's default, so a put is the call it always was), the
+    product-matrix ``CodeClass`` otherwise."""
+    code = cfg["code"]
+    if code["family"] == "double-circulant":
+        return None
+    from repro_torch.codes import CodeClass
+    return CodeClass(code["family"], int(code["n"]), int(code["k"]),
+                     int(code["d"]), int(code["p"]))
+
+
+def geometry(code: dict) -> dict:
+    """n, d, the blocks a share holds and the data blocks a stripe
+    carries, by family."""
+    k = int(code["k"])
+    if code["family"] == "double-circulant":
+        return {"n": 2 * k, "d": k + 1, "share_blocks": 2,
+                "data_blocks": 2 * k}
+    if code["family"] == "product-matrix":
+        alpha = int(code["d"]) - k + 1
+        return {"n": int(code["n"]), "d": int(code["d"]),
+                "share_blocks": alpha, "data_blocks": k * alpha}
+    raise ValueError(f"unknown code family {code['family']!r}")
 
 
 def build_scheduler(store):
@@ -81,5 +120,5 @@ def build_frontend(cfg: dict, store):
                         fetch_workers=int(fe["fetch_workers"]))
 
 
-__all__ = ["load_config", "object_sizes", "build_store", "build_scheduler",
-           "build_frontend"]
+__all__ = ["load_config", "object_sizes", "build_store", "code_class",
+           "geometry", "build_scheduler", "build_frontend"]

@@ -59,7 +59,8 @@ def config_file(bench: dict, name: str) -> Optional[str]:
 class Record:
     """What a run measured: the metric readers' input."""
     cell: str
-    code: dict                     # k, n, p, S of the configuration
+    code: dict                     # k, n, p, S, family, d, share_blocks
+                                   # and data_blocks of the configuration
     card: str = ""
     setup_s: float = 0.0
     window_s: float = 0.0
@@ -93,11 +94,15 @@ class Cell:
         self.device, self.backend, self.trace = device, backend, trace
         self.driver = load_driver(mix["driver"])
         code = cfg["code"]
-        self.k, self.n = int(code["k"]), 2 * int(code["k"])
+        geo = deploy.geometry(code)
+        self.k, self.n = int(code["k"]), geo["n"]
+        self.data_blocks = geo["data_blocks"]
+        self.code_class = deploy.code_class(cfg)
         self.s = int(cfg["store"]["stripe_symbols"])
         self.n_nodes = int(cfg["store"]["n_nodes"])
-        self.rec = Record(cell=name, code={"k": self.k, "n": self.n,
-                                           "p": int(code["p"]), "S": self.s})
+        self.rec = Record(cell=name, code={"k": self.k, "p": int(code["p"]),
+                                           "S": self.s,
+                                           "family": code["family"], **geo})
         self.keys = [f"obj{i:04d}" for i in range(int(cfg["objects"]
                                                       ["count"]))]
         self.sizes = deploy.object_sizes(cfg)
@@ -108,9 +113,15 @@ class Cell:
 
     # ----------------------------------------------------------- set-up
     def setup(self) -> None:
+        if self.backend is not None:
+            # the store pins its default class's code; the program builds
+            # a put's own class (product-matrix) on the process's default
+            from repro_torch.kernels import dispatch
+            dispatch.set_default_backend(self.backend)
         self.store = deploy.build_store(self.cfg, device=self.device,
                                         backend=self.backend)
-        self.ledger = verify.Ledger(self.n, self.s, self.store.placement_of)
+        self.ledger = verify.Ledger(self.n, self.s, self.store.placement_of,
+                                    data_blocks=self.data_blocks)
         self.driver.setup(self)
         self.sync()
 
@@ -129,9 +140,14 @@ class Cell:
             self.put(key, payload, 0)
 
     def put(self, key: str, payload: bytes, version: int) -> bool:
-        """The program's ``put``; the ledger records it if it returned."""
+        """The program's ``put``, naming the configuration's class where
+        it is not the store's default; the ledger records it if it
+        returned."""
         try:
-            self.store.put(key, payload)
+            if self.code_class is None:
+                self.store.put(key, payload)
+            else:
+                self.store.put(key, payload, code_class=self.code_class)
         except Exception as e:              # the run goes on; counted
             print(f"put {key} failed: {e!r}", file=sys.stderr)
             return False
@@ -200,6 +216,9 @@ class Cell:
             self.driver.close(self)
         if self.store is not None:
             self.store.close()
+        if self.backend is not None:
+            from repro_torch.kernels import dispatch
+            dispatch.set_default_backend(None)
 
 
 # ------------------------------------------------------------------ drivers

@@ -46,6 +46,26 @@ def regen_work(k: int, s: int, shares: int) -> tuple[int, int]:
     return (k + 3) * s * shares * SYMBOL_BYTES, 2 * 2 * (k + 1) * s * shares
 
 
+def pm_regen_work(d: int, alpha: int, s: int, shares: int,
+                  ) -> tuple[int, int]:
+    """(bytes, operations) of regenerating ``shares`` lost shares of the
+    product-matrix code, in its two launches: the helper sends (d
+    helpers, each alpha blocks in and one send out, alpha multiply-adds
+    a symbol) and the newcomer product (d sends in, the alpha blocks of
+    the share out, d multiply-adds a symbol): (d alpha + 2d + alpha)
+    blocks and 2 alpha d multiply-adds a symbol column."""
+    return ((d * alpha + 2 * d + alpha) * s * shares * SYMBOL_BYTES,
+            2 * 2 * alpha * d * s * shares)
+
+
+def regen_work_of(code: dict, shares: int) -> tuple[int, int]:
+    """The regeneration work of a run's code (``Record.code``), by
+    family."""
+    if code["family"] == "double-circulant":
+        return regen_work(code["k"], code["S"], shares)
+    return pm_regen_work(code["d"], code["share_blocks"], code["S"], shares)
+
+
 def decode_work(k: int, s: int, stripes: int, missing: int,
                 ) -> tuple[int, int]:
     """(bytes, operations) of decoding ``missing`` data blocks out of
@@ -68,4 +88,5 @@ def roofline_pct(nbytes: float, ops: float, kernel_s: float,
 
 
 __all__ = ["SYMBOL_BYTES", "MEM_PEAK", "OPS_PEAK", "mem_peak",
-           "encode_work", "regen_work", "decode_work", "roofline_pct"]
+           "encode_work", "regen_work", "pm_regen_work", "regen_work_of",
+           "decode_work", "roofline_pct"]

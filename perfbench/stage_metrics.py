@@ -16,9 +16,15 @@ def put_mib(rec):
     return rec.put_bytes / 2 ** 20
 
 
+def share_bytes(rec):
+    """Bytes of one share at one byte a symbol: the blocks a share holds
+    (2 in the double-circulant code, alpha in product-matrix) times S."""
+    return rec.code["share_blocks"] * rec.code["S"]
+
+
 def rebuilt_mib(rec):
-    """MiB of shares rebuilt (2 S bytes a share)."""
-    return rec.rebuilt_shares * 2 * rec.code["S"] / 2 ** 20
+    """MiB of shares rebuilt."""
+    return rec.rebuilt_shares * share_bytes(rec) / 2 ** 20
 
 
 def ms_per_mib(rec, key: str, mib: float):

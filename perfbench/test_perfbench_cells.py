@@ -5,7 +5,8 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import control, harness, reference, tiny
+from perfbench import control, deploy, harness, reference, reference_pm, \
+    tiny, verify
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
@@ -61,6 +62,108 @@ def test_reference_equals_the_port():
                        torch.remainder(m.long() @ data.long(), 257).int())
 
 
+# product-matrix classes and their points: (16, 8, 14) needs no
+# shortening, (8, 4, 7) has one virtual node
+PM_CLASSES = [((16, 8, 14), tuple(range(1, 17))),
+              ((8, 4, 7), tuple(range(1, 10)))]
+
+
+def helper_sets(n: int, d: int, node: int) -> list[tuple[int, ...]]:
+    """The first d, the last d and every other one of the nodes but
+    ``node`` (all one set where d = n - 1)."""
+    rest = [j for j in range(1, n + 1) if j != node]
+    return [tuple(rest[:d]), tuple(rest[-d:]),
+            tuple(sorted(rest[::2] + rest[1::2][:d - len(rest[::2])]))]
+
+
+@pytest.mark.parametrize("nkd,g", PM_CLASSES)
+def test_product_matrix_reference_equals_the_port(nkd, g):
+    from repro_torch.codes import CodeClass, make_code
+    n, k, d = nkd
+    code = make_code(CodeClass("product-matrix", n, k, d, 257), device="cpu")
+    assert tuple(int(x) for x in code.gens) == g
+    ref = reference_pm.make(n, k, d, 257, g)
+    assert (ref.alpha, ref.data_blocks) == (code.share_blocks,
+                                            code.data_blocks)
+    gen = torch.Generator().manual_seed(1)
+    data = torch.randint(0, 257, (ref.data_blocks, 500), generator=gen,
+                         dtype=torch.int32)
+    shares = reference_pm.encode(ref, data)
+    assert torch.equal(shares, torch.from_numpy(
+        code.encode_shares(data.numpy())))
+    for m in range(ref.data_blocks):
+        node, blk = reference_pm.data_location(ref, m)
+        assert (node, blk) == code.data_location(m)
+        assert torch.equal(shares[node - 1, blk], data[m])
+    for node in (1, k, n):
+        for hs in helper_sets(n, d, node):
+            plan = code.repair_plan(node, available=hs)
+            assert plan.helpers == hs
+            sends = torch.stack([reference_pm.send(ref, node, shares[h - 1])
+                                 for h in hs])
+            port_sends = code.helper_sends(
+                [(sm, shares[h - 1].numpy())
+                 for sm, h in zip(plan.send_matrices, hs)])
+            assert np.array_equal(port_sends, sends.numpy())
+            rebuilt = reference_pm.regenerate(ref, node, hs, sends)
+            assert torch.equal(rebuilt, shares[node - 1])
+            assert np.array_equal(code.regenerate(plan, port_sends),
+                                  rebuilt.numpy())
+
+
+def test_product_matrix_reference_refuses_bad_points():
+    with pytest.raises(ValueError):
+        reference_pm.make(16, 8, 14, 257, tuple(range(1, 16)))
+    with pytest.raises(ValueError):     # 1 and 16 have one fourth power
+        reference_pm.make(8, 4, 7, 257, (1, 2, 3, 4, 5, 6, 7, 8, 16))
+    with pytest.raises(ValueError):
+        reference_pm.make(16, 8, 13, 257, tuple(range(1, 17)))
+
+
+class _Puts:
+    """A store that records each ``put`` call as it was made."""
+    placement_of = None
+
+    def __init__(self):
+        self.calls = []
+
+    def put(self, *args, **kw):
+        self.calls.append((args, kw))
+
+
+@pytest.mark.parametrize("name", ["dc16-hdfs128m", "pm16-tiny"])
+def test_each_put_names_the_family_s_class(name):
+    cfg = tiny.config(name)
+    cell = harness.Cell("x", cfg, {"driver": "repair_loop"}, 1, 0.1,
+                        device="cpu")
+    cell.store = _Puts()
+    cell.ledger = verify.Ledger(cell.n, cell.s, None,
+                                data_blocks=cell.data_blocks)
+    assert cell.put("a", b"xyz", 0)
+    if cfg["code"]["family"] == "double-circulant":
+        assert cell.store.calls == [(("a", b"xyz"), {})]
+        assert deploy.code_class(cfg) is None
+    else:
+        from repro_torch.codes import CodeClass
+        assert cell.store.calls == [(("a", b"xyz"), {
+            "code_class": CodeClass("product-matrix", 16, 8, 14, 257)})]
+    geo = deploy.geometry(cfg["code"])
+    assert cell.rec.code == {"k": 8, "p": 257, "S": 256,
+                             "family": cfg["code"]["family"], **geo}
+
+
+def test_an_unknown_family_is_refused():
+    cfg = tiny.config("dc16-hdfs128m")
+    cfg["code"]["family"] = "reed-solomon"
+    for call in (lambda: deploy.build_store(cfg, device="cpu"),
+                 lambda: deploy.geometry(cfg["code"]),
+                 lambda: verify.check_store(None, None, cfg["code"],
+                                            lost=set(), rebuilt=set(),
+                                            device="cpu")):
+        with pytest.raises(ValueError, match="unknown code family"):
+            call()
+
+
 @pytest.mark.parametrize("cell", tiny.cells())
 def test_control_comes_out_not_correct(cell):
     res = tiny.run(cell, backend=control.register())
@@ -78,17 +181,32 @@ def _altered_host(orig):
     return host
 
 
-def plant(monkeypatch, run: harness.Cell, fault: str) -> None:
+def plant(monkeypatch, run: harness.Cell, fault: str) -> str:
     """Break the step the cell's window drives: one symbol altered where
     the GF op's result lands on the host, or one of the driver's own
-    faults (``FAULTS``)."""
+    faults (``FAULTS``).  Returns the name of what was replaced."""
     from repro_torch.exec.plan import PlanResult
     if fault == "altered":
         monkeypatch.setattr(PlanResult, "host",
                             _altered_host(PlanResult.host))
-        return
+        return "host"
     owner, name, fn = run.driver.FAULTS[fault]()
     monkeypatch.setattr(owner, name, fn)
+    return name
+
+
+def put_once_more_if_back_at_fill(run: harness.Cell, filled: dict) -> None:
+    """Where the window's puts left every key at the version its fill
+    put (closed-loop ingest does after every lcm(keys, versions) puts),
+    put one key's payload once more, changed, through the path under
+    test: a broken put then shows in every run, not only in the runs
+    whose window ends elsewhere."""
+    if any(run.ledger.objs[key].version != v for key, v in filled.items()):
+        return
+    key = run.keys[0]
+    obj = run.ledger.objs[key]
+    run.put(key, bytes([obj.payload[0] ^ 1]) + obj.payload[1:],
+            obj.version + 1)
 
 
 FAULTS = [(cell, fault) for cell in tiny.cells()
@@ -102,8 +220,11 @@ def test_planted_fault_comes_out_not_correct(monkeypatch, cell, fault):
                        tiny.mix(entry["traffic"]), 5, 0.6, device="cpu")
     try:
         run.setup()
-        plant(monkeypatch, run, fault)
+        filled = {key: obj.version for key, obj in run.ledger.objs.items()}
+        replaced = plant(monkeypatch, run, fault)
         run.window()
+        if replaced == "put":
+            put_once_more_if_back_at_fill(run, filled)
         run.finish()
         checks = run.check()
     finally:

@@ -10,7 +10,10 @@ NAME = "drain.gather_threads"
 
 def record(stage=None):
     rec = harness.Record(cell="x", code={"k": 8, "n": 16, "p": 257,
-                                         "S": 65536})
+                                         "S": 65536,
+                                         "family": "double-circulant",
+                                         "d": 9, "share_blocks": 2,
+                                         "data_blocks": 16})
     rec.rebuilt_shares, rec.window_s = 16, 2.0
     if stage is not None:
         rec.counters = {"stage": stage}

@@ -10,7 +10,10 @@ NAME = "put.install_threads"
 
 def record(stage=None):
     rec = harness.Record(cell="x", code={"k": 8, "n": 16, "p": 257,
-                                         "S": 1 << 20})
+                                         "S": 1 << 20,
+                                         "family": "double-circulant",
+                                         "d": 9, "share_blocks": 2,
+                                         "data_blocks": 16})
     rec.put_bytes, rec.window_s = 1 << 27, 2.0
     if stage is not None:
         rec.counters = {"stage": stage}

@@ -1,6 +1,7 @@
-"""The benchmark's frozen reference (``reference.py``, plain torch)
-against the JAX package's encode and regeneration at a small size: the
-yardstick rests on the reference of record; and the JAX package's
+"""The benchmark's frozen references (``reference.py`` and
+``reference_pm.py``, plain torch) against the JAX package's encode and
+regeneration at a small size: the yardstick rests on the reference of
+record; and the JAX package's
 placement passes the check's rule for where shares may live.  The only file
 under perfbench/ that imports the JAX package; nothing a run executes
 imports this one."""
@@ -14,7 +15,7 @@ from repro.core import placement as jplacement  # noqa: E402
 from repro.core.circulant import CodeSpec  # noqa: E402
 from repro.core.msr import DoubleCirculantMSR  # noqa: E402
 
-from perfbench import reference  # noqa: E402
+from perfbench import reference, reference_pm  # noqa: E402
 
 C = [195, 101, 85, 228, 68, 59, 183, 160]
 
@@ -37,6 +38,40 @@ def test_reference_equals_the_jax_package():
                                     torch.from_numpy(helpers), C, 257)
         assert np.array_equal(a.numpy(), np.asarray(ja))
         assert np.array_equal(r.numpy(), np.asarray(jr))
+
+
+@pytest.mark.parametrize("n,k,d,g", [(16, 8, 14, tuple(range(1, 17))),
+                                     (8, 4, 7, tuple(range(1, 10)))])
+def test_product_matrix_reference_equals_the_jax_package(n, k, d, g):
+    """At (16, 8, 14) and at the shortened (8, 4, 7) (one virtual
+    node): every share of the encode, and each node rebuilt from three
+    helper sets (the one set there is where d = n - 1)."""
+    from repro.codes import CodeClass, make_code
+    code = make_code(CodeClass("product-matrix", n, k, d, 257))
+    assert tuple(int(x) for x in code.gens) == g
+    ref = reference_pm.make(n, k, d, 257, g)
+    rng = np.random.default_rng(2)
+    data = rng.integers(0, 257, (ref.data_blocks, 333), dtype=np.int32)
+    shares = np.asarray(code.encode_shares(data))
+    got = reference_pm.encode(ref, torch.from_numpy(data))
+    assert np.array_equal(got.numpy(), shares)
+    for node in range(1, n + 1):
+        rest = [j for j in range(1, n + 1) if j != node]
+        for hs in {tuple(rest[:d]), tuple(rest[-d:]),
+                   reference_pm.helpers(ref, node)}:
+            hs = tuple(sorted(hs))
+            plan = code.repair_plan(node, available=hs)
+            assert tuple(plan.helpers) == hs
+            sends = np.stack([code.helper_send(sm, shares[h - 1])
+                              for sm, h in zip(plan.send_matrices, hs)])
+            ref_sends = torch.stack([
+                reference_pm.send(ref, node, torch.from_numpy(shares[h - 1]))
+                for h in hs])
+            assert np.array_equal(ref_sends.numpy(), sends)
+            want = np.asarray(code.regenerate(plan, sends))
+            rebuilt = reference_pm.regenerate(ref, node, hs, ref_sends)
+            assert np.array_equal(rebuilt.numpy(), want)
+            assert np.array_equal(want, shares[node - 1])
 
 
 def test_placement_equals_the_jax_package():

@@ -19,7 +19,10 @@ def bench():
 
 def record(**kw):
     rec = harness.Record(cell="x", code={"k": 8, "n": 16, "p": 257,
-                                         "S": 65536})
+                                         "S": 65536,
+                                         "family": "double-circulant",
+                                         "d": 9, "share_blocks": 2,
+                                         "data_blocks": 16})
     for k, v in kw.items():
         setattr(rec, k, v)
     return rec
@@ -59,6 +62,72 @@ def test_roofline_byte_counts():
     # 3.35 GB moved in 2 ms is half the bound of 1 ms
     assert roofline.roofline_pct(3.35e9, 0, 2e-3, card) == pytest.approx(50)
     assert roofline.roofline_pct(3.35e9, 0, 0.0, card) is None
+
+
+CARD = "NVIDIA H100 80GB HBM3"
+DRAIN_STAGES = {"drain.select_ms_per_MiB": "t_select",
+                "drain.read_wait_ms_per_MiB": "t_read_wait",
+                "drain.barrier_ms_per_MiB": "t_barrier",
+                "drain.crc_ms_per_MiB": "t_crc"}
+
+
+def repair_record(code: dict):
+    """A traced repair window of 1000 shares rebuilt in 50 s, S = 2^20."""
+    rec = harness.Record(cell="x", code=code, card=CARD)
+    rec.rebuilt_shares, rec.window_s = 1000, 50.0
+    rec.drain = {"symbols_moved": 9 << 30, "rs_baseline_symbols": 16 << 30}
+    rec.counters = {"stage": {"t_select": 0.25, "t_read_wait": 20.0,
+                              "t_barrier": 1.5, "t_crc": 9.0,
+                              "t_dispatch": 2.0, "t_consume": 3.0}}
+    rec.trace = {"by_name": {"gf_matmul_kernel<64, 8, true>": 0.08,
+                             "Memcpy DtoH (Device -> Pageable)": 4.0},
+                 "busy_s": 5.0, "window_s": 50.0, "idle_by_host": {}}
+    return rec
+
+
+def test_double_circulant_repair_readers_read_as_before():
+    """The values of the formulas the readers had before they counted a
+    share by the family's blocks (2 S bytes a share, d = k + 1 helper
+    blocks in), from the same record, bit for bit."""
+    s = 1 << 20
+    rec = repair_record({"k": 8, "n": 16, "p": 257, "S": s,
+                         "family": "double-circulant", "d": 9,
+                         "share_blocks": 2, "data_blocks": 16})
+    read = harness.load_reader
+    assert read("repair_MBps")(rec) == 1000 * 2 * s / 50.0 / 1e6
+    mib = 1000 * 2 * s / 2 ** 20
+    for name, key in DRAIN_STAGES.items():
+        assert read(name)(rec) == 1e3 * rec.counters["stage"][key] / mib
+    assert read("copy.repair_ms_per_MiB")(rec) == 1e3 * 4.0 / mib
+    least = max((8 + 3) * s * 1000 * 4 / 3.35e12,
+                2 * 2 * (8 + 1) * s * 1000 / 67e12)
+    assert read("gf_matmul_roofline.regen")(rec) == 100.0 * least / 0.08
+
+
+def test_product_matrix_counts_by_hand():
+    """(16, 8, 14): alpha = 7 blocks a share, 56 a stripe; a share
+    rebuilt is 14 helper sends (7 blocks in, 1 out each) and the
+    newcomer's product (14 in, 7 out): 98 + 14 + 14 + 7 = 133 blocks,
+    and 7 x 14 + 7 x 14 = 196 multiply-adds a symbol column."""
+    from perfbench import deploy
+    s = 1 << 20
+    geo = deploy.geometry({"family": "product-matrix", "n": 16, "k": 8,
+                           "d": 14, "p": 257})
+    assert geo == {"n": 16, "d": 14, "share_blocks": 7, "data_blocks": 56}
+    assert roofline.pm_regen_work(14, 7, s, 1) == (133 * 4 * s, 392 * s)
+    assert roofline.pm_regen_work(14, 7, s, 1000) == (
+        557842432000, 411041792000)
+    rec = repair_record({"k": 8, "p": 257, "S": s,
+                         "family": "product-matrix", **geo})
+    read = harness.load_reader
+    assert read("repair_MBps")(rec) == pytest.approx(
+        1000 * 7 * s / 50.0 / 1e6)                      # 146.8 MB/s
+    assert read("drain.select_ms_per_MiB")(rec) == pytest.approx(
+        250.0 / 7000)
+    # 557.8 GB at 3.35 TB/s is 166.5 ms, a third of 500 ms of the kernel
+    rec.trace["by_name"] = {"gf_matmul_kernel<64, 8, true>": 0.5}
+    assert read("gf_matmul_roofline.regen")(rec) == pytest.approx(
+        100.0 * 557842432000 / 3.35e12 / 0.5)
 
 
 def test_idle_share_from_synthetic_intervals():

@@ -19,7 +19,10 @@ NEEDS = {"tick.drain_pct": ("stage", "t_tick_drain"),
 
 def record(**kw):
     rec = harness.Record(cell="x", code={"k": 8, "n": 16, "p": 257,
-                                         "S": 4096})
+                                         "S": 4096,
+                                         "family": "double-circulant",
+                                         "d": 9, "share_blocks": 2,
+                                         "data_blocks": 16})
     for k, v in kw.items():
         setattr(rec, k, v)
     return rec

@@ -18,7 +18,10 @@ OLD_KEYS = {"t_stage_read": 0.5, "t_pack": 0.1, "t_pad": 0.0,
 
 def record(**kw):
     rec = harness.Record(cell="x", code={"k": 8, "n": 16, "p": 257,
-                                         "S": 65536})
+                                         "S": 65536,
+                                         "family": "double-circulant",
+                                         "d": 9, "share_blocks": 2,
+                                         "data_blocks": 16})
     for k, v in kw.items():
         setattr(rec, k, v)
     return rec

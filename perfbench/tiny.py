@@ -7,7 +7,9 @@ with the rest.  ``RIGS`` add a run for each driver that no cell uses
 yet, on a configuration of its own and a mix given here, so that a
 later cell can take the driver up with data files alone: the read path
 through the front end, as the read cells that were measured and left
-out of ``BENCHMARK.json`` ran it.
+out of ``BENCHMARK.json`` ran it.  A rig may also run a configuration
+that no cell has yet, given here inline (``CONFIGS``): the
+product-matrix code under closed-loop repair.
 """
 from __future__ import annotations
 
@@ -21,6 +23,25 @@ DRIVERS_DIR = Path(__file__).resolve().parent / "drivers"
 
 READS = {"driver": "open_loop", "rate_per_s": 40.0, "zipfian_constant": 0.99,
          "warmup_s": 0.3}
+# configurations of the rigs that no file under configs/ holds yet
+CONFIGS = {
+    "pm16-tiny": {
+        "name": "pm16-tiny",
+        "code": {"family": "product-matrix", "n": 16, "k": 8, "d": 14,
+                 "p": 257, "g": list(range(1, 17)),
+                 "default_c": [195, 101, 85, 228, 68, 59, 183, 160]},
+        "store": {"n_nodes": 20, "n_racks": None, "stripe_symbols": 256},
+        "objects": {"count": 6, "size_dist": "fixed"}},
+}
+REPAIR_LAYERS = [("gf_matmul_roofline.regen", "%"), ("idle.repair", "%"),
+                 ("copy.repair_ms_per_MiB", "ms/MiB"),
+                 ("drain.traffic_vs_rs", "ratio"),
+                 ("drain.select_ms_per_MiB", "ms/MiB"),
+                 ("drain.read_wait_ms_per_MiB", "ms/MiB"),
+                 ("drain.barrier_ms_per_MiB", "ms/MiB"),
+                 ("drain.crc_ms_per_MiB", "ms/MiB"),
+                 ("drain.unattributed_pct", "%"),
+                 ("drain.gather_threads", "threads")]
 # name: (configuration, mix, end-to-end metrics, per-layer metrics)
 RIGS = {
     "rgw-degraded-read": (
@@ -35,6 +56,9 @@ RIGS = {
                            lost_nodes=[]),
         [("get_p95_ms", "ms")],
         [("idle.get", "%"), ("frontend.service_ms", "ms")]),
+    "pm16-drain": (
+        "pm16-tiny", {"name": "pm16-drain", "driver": "repair_loop"},
+        [("repair_MBps", "MB/s")], REPAIR_LAYERS),
 }
 
 
@@ -70,17 +94,20 @@ def drivers() -> list[str]:
 
 
 def config(name: str) -> dict:
-    """The configuration ``name`` on stripes of 256 symbols and 6
-    objects of 4 stripes: 24 stripes, more than the 20 nodes, so every
-    node holds shares of stripes that lose no other node (a later
-    failure's full decode cannot quietly redo a missing repair)."""
-    cfg = copy.deepcopy(deploy.load_config(name))
+    """The configuration ``name`` (a rig's, or its file) on stripes of
+    256 symbols and 6 objects of 4 stripes of the family's data blocks:
+    24 stripes, more than the 20 nodes, so every node holds shares of
+    stripes that lose no other node (a later failure's full decode
+    cannot quietly redo a missing repair)."""
+    cfg = copy.deepcopy(CONFIGS[name] if name in CONFIGS
+                        else deploy.load_config(name))
     cfg["store"]["stripe_symbols"] = 256
+    largest = 3 * deploy.geometry(cfg["code"])["data_blocks"] * 256 + 100
     obj = cfg["objects"]
     if obj["size_dist"] == "fixed":
-        obj.update(count=6, size_bytes=3 * 16 * 256 + 100)
+        obj.update(count=6, size_bytes=largest)
     else:
-        obj.update(count=24, size_min=1000, size_max=3 * 16 * 256 + 100)
+        obj.update(count=24, size_min=1000, size_max=largest)
     return cfg
 
 
